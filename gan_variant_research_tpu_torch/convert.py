@@ -1,4 +1,4 @@
-"""JAX ResNet-generator param tree -> the port's ``state_dict``.
+"""JAX generator and discriminator param trees -> the port's ``state_dict``s.
 
 Counterpart of ``gan_variant_research_tpu/cli/export_torch_checkpoint.py::
 generator_params_to_state_dict``. The port's submodules carry the JAX tree's
@@ -78,4 +78,29 @@ def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
             f"Param tree has modules the port's ResNetGenerator does not have: "
             f"{extra}. Variant checkpoints (use_attention / use_channel_attn / "
             "use_style_dropout) are not ported yet.")
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``MultiscaleDiscriminator`` param tree (``scale_i/conv_n``,
+    ``scale_i/conv_out``, each ``kernel`` HWIO and ``bias``) -> the port's
+    ``MultiscaleDiscriminator.state_dict()``. Raises on modules or leaves it
+    cannot map (spectral-norm state lives outside ``params`` and is not
+    ported)."""
+    sd: dict[str, torch.Tensor] = {}
+    leaves = {"kernel": ("weight", _hwio_to_oihw), "bias": ("bias", _tensor)}
+    scales = sorted(k for k in params if k.startswith("scale_"))
+    if not scales or set(params) != set(scales):
+        raise ValueError("Param tree does not look like a MultiscaleDiscriminator: "
+                         f"modules {sorted(params)[:5]}")
+    for scale in scales:
+        for conv, node in params[scale].items():
+            if not (conv == "conv_out" or conv.startswith("conv_")):
+                raise ValueError(f"{scale} has a module the port cannot map: {conv}")
+            node = dict(node)
+            for jax_name, (torch_name, fn) in leaves.items():
+                if jax_name in node:
+                    sd[f"{scale}.{conv}.{torch_name}"] = fn(node.pop(jax_name))
+            if node:
+                raise ValueError(f"{scale}/{conv} has leaves the port cannot map: {sorted(node)}")
     return sd

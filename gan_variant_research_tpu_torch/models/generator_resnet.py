@@ -149,31 +149,30 @@ class ResNetGenerator(nn.Module):
         self.output_conv = Conv2d(ngf, output_nc, 7, padding=stem_pad,
                                   use_bias=True, **kw)
 
-    def forward(self, x: torch.Tensor, extract: Sequence[int] | None = None):
-        tap_set = set(extract) if extract is not None else None
+    def forward(self, x: torch.Tensor, extract: Sequence[int] | None = None,
+                taps_only: bool = False):
+        """``taps_only=True`` (with ``extract``) stops after the last
+        existing tap and returns (None, feats): the train step's forward on
+        the fake needs only the PatchNCE features."""
+        tap_set = set(extract) if extract is not None else set()
+        n_layers = 1 + 2 * self.n_down + self.n_blocks
+        last = max((i for i in tap_set if i < n_layers), default=-1)
         feats: list[torch.Tensor] = []
-        layer_idx = 0
-
-        def tap(h):
-            nonlocal layer_idx
-            if tap_set is not None and layer_idx in tap_set:
-                feats.append(h)
-            layer_idx += 1
-
         reflect = self.padding_type == "reflect"
+        stages = [lambda h: self.act(_norm(self.initial_conv(
+            pad_2d(h, 3, "reflect") if reflect else h), self.norm))]
+        stages += [lambda h, i=i: self.act(_norm(getattr(self, f"down_{i}")(h), self.norm))
+                   for i in range(self.n_down)]
+        stages += [lambda h, i=i: getattr(self, f"res_{i}")(h) for i in range(self.n_blocks)]
+        stages += [lambda h, i=i: self.act(_norm(getattr(self, f"up_{i}")(h), self.norm))
+                   for i in range(self.n_down)]
         h = x.to(self.dtype)
-        h = pad_2d(h, 3, "reflect") if reflect else h
-        h = self.act(_norm(self.initial_conv(h), self.norm))
-        tap(h)
-        for i in range(self.n_down):
-            h = self.act(_norm(getattr(self, f"down_{i}")(h), self.norm))
-            tap(h)
-        for i in range(self.n_blocks):
-            h = getattr(self, f"res_{i}")(h)
-            tap(h)
-        for i in range(self.n_down):
-            h = self.act(_norm(getattr(self, f"up_{i}")(h), self.norm))
-            tap(h)
+        for layer_idx, stage in enumerate(stages):
+            h = stage(h)
+            if layer_idx in tap_set:
+                feats.append(h)
+            if taps_only and layer_idx == last:
+                return None, feats
         out = pad_2d(h, 3, "reflect") if reflect else h
         out = torch.tanh(self.output_conv(out))
         if extract is not None:

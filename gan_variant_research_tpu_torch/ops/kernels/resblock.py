@@ -1,17 +1,24 @@
-"""Reflect-pad + 3x3 conv for the residual trunk, and the block built on it.
+"""Reflect-pad + 3x3 conv for the residual trunk, its gradients, and the
+block built on it.
 
-Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py`` (forward
-only: serving needs no gradient).
+Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 
 - ``reflect_conv3x3(x, w, b)``: reflect-pad(1) + 3x3 valid conv + bias on
-  NHWC tensors. On a CUDA tensor it launches the hand-written Hopper kernel
-  ``csrc/reflect_conv3x3.cu`` (built at first use) or raises; on a CPU
-  tensor it runs ``reflect_conv3x3_reference``. ``LAUNCHES`` counts the
-  kernel launches.
-- ``reflect_conv3x3_reference``: the plain PyTorch version with the same
-  dtype contract (float32 products and sums, float32 bias, one cast).
+  NHWC tensors, differentiable through ``_ReflectConv3x3`` (a
+  ``torch.autograd.Function``, the counterpart of the JAX ``custom_vjp``).
+  Its forward is ``csrc/reflect_conv3x3.cu`` on a CUDA tensor and
+  ``reflect_conv3x3_reference`` on a CPU tensor; its backward is
+  ``reflect_conv3x3_dx`` and ``reflect_conv3x3_dw``.
+- ``reflect_conv3x3_dx(dy, w)``: the input gradient, ``csrc/
+  reflect_conv3x3_dx.cu`` on CUDA, ``reflect_conv3x3_dx_reference`` on CPU.
+- ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
+  reflect_conv3x3_dw.cu`` on CUDA, ``reflect_conv3x3_dw_reference`` on CPU.
 - ``fused_resblock``: conv -> instance norm -> ReLU -> conv -> instance norm
   -> residual add, NHWC.
+
+A CUDA tensor launches the kernel (built at first use) or raises; the plain
+versions serve CPU tensors. ``LAUNCHES``, ``DX_LAUNCHES`` and
+``DW_LAUNCHES`` count the kernel launches.
 """
 
 from __future__ import annotations
@@ -21,42 +28,86 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
 
 LAUNCHES = 0
+DX_LAUNCHES = 0
+DW_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_GRID_Z_MAX = 65535
 
 
-@functools.cache
-def _forward_fn():
+def _load(name: str, symbol: str, n_ptr: int, n_int: int):
     from gan_variant_research_tpu_torch.ops.kernels._build import load_library
 
-    fn = load_library("reflect_conv3x3").reflect_conv3x3_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _forward_fn():
+    return _load("reflect_conv3x3", "reflect_conv3x3_forward", 4, 6)
+
+
+@functools.cache
+def _dx_fn():
+    return _load("reflect_conv3x3_dx", "reflect_conv3x3_dx", 4, 6)
+
+
+@functools.cache
+def _dw_fn():
+    return _load("reflect_conv3x3_dw", "reflect_conv3x3_dw", 4, 7)
+
+
+def _check_act(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be NHWC (4-D), got shape {tuple(t.shape)}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.shape[1] < 2 or t.shape[2] < 2:
+        raise ValueError(f"reflect padding needs H, W >= 2, got "
+                         f"{t.shape[1]}x{t.shape[2]}")
+
+
+def _check_device(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"tensors must share a device, got {[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC (4-D), got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    _, h, width, c_in = x.shape
-    if h < 2 or width < 2:
-        raise ValueError(f"reflect padding needs H, W >= 2, got {h}x{width}")
+    _check_act("x", x)
+    c_in = x.shape[3]
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c_in):
         raise ValueError(f"w must be HWIO (3, 3, {c_in}, Cout), got {tuple(w.shape)}")
     if tuple(b.shape) != (w.shape[3],):
         raise ValueError(f"b must be ({w.shape[3]},), got {tuple(b.shape)}")
     if not (w.is_floating_point() and b.is_floating_point()):
         raise TypeError("w and b must be floating point")
-    if w.device != x.device or b.device != x.device:
-        raise ValueError(f"x, w, b must share a device, got {x.device}, "
-                         f"{w.device}, {b.device}")
+    _check_device(x, w, b)
 
+
+def _check_cuda(t: torch.Tensor) -> None:
+    if not t.is_contiguous():
+        raise ValueError("activations must be contiguous NHWC tensors")
+    if t.shape[0] > _GRID_Z_MAX:
+        raise ValueError(f"batch {t.shape[0]} exceeds the kernel's grid limit of {_GRID_Z_MAX}")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+# --------------------------------------------------------------------------- #
+# plain versions (the kernels' contracts; CPU path and the card's comparisons)
 
 def reflect_conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
                               b: torch.Tensor) -> torch.Tensor:
@@ -70,25 +121,65 @@ def reflect_conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def reflect_conv3x3(x: torch.Tensor, w: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
-    """reflect-pad(1) + 3x3 valid conv + bias. ``x`` is NHWC (contiguous on
-    CUDA), ``w`` HWIO (cast to x's dtype), ``b`` (Cout,) in float32.
+def _check_dx(dy: torch.Tensor, w: torch.Tensor) -> None:
+    _check_act("dy", dy)
+    if w.dim() != 4 or w.shape[:2] != (3, 3) or w.shape[3] != dy.shape[3]:
+        raise ValueError(f"w must be HWIO (3, 3, Cin, {dy.shape[3]}), got {tuple(w.shape)}")
+    if not w.is_floating_point():
+        raise TypeError("w must be floating point")
+    _check_device(dy, w)
 
-    On CUDA this launches the Hopper kernel on the current stream without
-    synchronising; on the CPU it is ``reflect_conv3x3_reference``."""
+
+def reflect_conv3x3_dx_reference(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain input gradient, as ``_xla_data_grad``: the full correlation of
+    dy with the kernel (``conv_transpose2d``) gives the gradient of the
+    reflect-padded input, (N, H+2, W+2, Cin); its border columns, then rows,
+    fold onto their reflection sources. ``w`` is cast to dy's dtype;
+    products, sums and the fold are float32, then one cast to dy's dtype."""
+    _check_dx(dy, w)
+    wf = w.to(dy.dtype).float().permute(3, 2, 0, 1)           # (Cout, Cin, 3, 3)
+    dxp = F.conv_transpose2d(dy.float().permute(0, 3, 1, 2), wf)
+    g = dxp[..., 1:-1].clone()
+    g[..., 1] += dxp[..., 0]
+    g[..., -2] += dxp[..., -1]
+    mid = g[:, :, 1:-1].clone()
+    mid[:, :, 1] += g[:, :, 0]
+    mid[:, :, -2] += g[:, :, -1]
+    return mid.permute(0, 2, 3, 1).to(dy.dtype).contiguous()
+
+
+def _check_dw(x: torch.Tensor, dy: torch.Tensor) -> None:
+    _check_act("x", x)
+    _check_act("dy", dy)
+    if x.shape[:3] != dy.shape[:3] or x.dtype != dy.dtype:
+        raise ValueError(f"x {tuple(x.shape)} {x.dtype} and dy {tuple(dy.shape)} "
+                         f"{dy.dtype} must share N, H, W and dtype")
+    _check_device(x, dy)
+
+
+def reflect_conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain weight gradient, as ``_xla_weight_grad``: nine float32
+    (N*H*W, Cin)^T (N*H*W, Cout) products of the reflect-padded, shifted x
+    with dy. Returns (3, 3, Cin, Cout) float32."""
+    _check_dw(x, dy)
+    n, h, width, c_in = x.shape
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = xp.permute(0, 2, 3, 1)
+    dyf = dy.float().reshape(-1, dy.shape[3])
+    return torch.stack([
+        torch.stack([xp[:, ky:ky + h, kx:kx + width].reshape(-1, c_in).T @ dyf
+                     for kx in range(3)])
+        for ky in range(3)])
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor
+
+def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    _check(x, w, b)
-    if x.device.type == "cpu":
-        return reflect_conv3x3_reference(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be a contiguous NHWC tensor")
+    _check_cuda(x)
     n, h, width, c_in = x.shape
     c_out = w.shape[3]
-    if n > 65535:
-        raise ValueError(f"batch {n} exceeds the kernel's grid limit of 65535")
     w = w.to(x.dtype).contiguous()
     b = b.float().contiguous()
     y = torch.empty((n, h, width, c_out), dtype=x.dtype, device=x.device)
@@ -97,10 +188,115 @@ def reflect_conv3x3(x: torch.Tensor, w: torch.Tensor,
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                  n, h, width, c_in, c_out, _DTYPE_CODES[x.dtype],
                  torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"reflect_conv3x3 launch failed: CUDA error {err}")
+    _raise_on(err, "reflect_conv3x3")
     LAUNCHES += 1
     return y
+
+
+def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``reflect_conv3x3`` for the cotangent ``dy``
+    (N, H, W, Cout) and the HWIO kernel ``w``; returns (N, H, W, Cin) in
+    dy's dtype. On CUDA it launches ``csrc/reflect_conv3x3_dx.cu`` on the
+    current stream; on the CPU it is ``reflect_conv3x3_dx_reference``."""
+    global DX_LAUNCHES
+    _check_dx(dy, w)
+    if dy.device.type == "cpu":
+        return reflect_conv3x3_dx_reference(dy, w)
+    _check_cuda(dy)
+    n, h, width, c_out = dy.shape
+    c_in = w.shape[2]
+    wf = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()   # (3, 3, Cout, Cin)
+    frame = torch.empty((n, 2 * (width + 2) + 2 * h, c_in), dtype=torch.float32,
+                        device=dy.device)
+    dx = torch.empty((n, h, width, c_in), dtype=dy.dtype, device=dy.device)
+    fn = _dx_fn()
+    with torch.cuda.device(dy.device):
+        err = fn(dy.data_ptr(), wf.data_ptr(), frame.data_ptr(), dx.data_ptr(),
+                 n, h, width, c_in, c_out, _DTYPE_CODES[dy.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "reflect_conv3x3_dx")
+    DX_LAUNCHES += 1
+    return dx
+
+
+def dw_splits(x_shape, c_out: int, sm_count: int) -> int:
+    """How many parts the dw kernel splits the N*H*W reduction into: enough
+    blocks for about four waves over ``sm_count`` SMs, at most one image-row
+    segment (64 pixels) per part."""
+    n, h, width, c_in = x_shape
+    segments = n * h * -(-width // 64)
+    blocks_per_split = 3 * -(-c_in // 64) * -(-c_out // 64)
+    want = -(-4 * sm_count // blocks_per_split)
+    return max(1, min(segments, want, _GRID_Z_MAX // 3))
+
+
+def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of ``reflect_conv3x3`` for the input ``x`` and the
+    cotangent ``dy`` (same dtype); returns (3, 3, Cin, Cout) float32, the
+    same bits from run to run. On CUDA it launches
+    ``csrc/reflect_conv3x3_dw.cu``; on the CPU it is
+    ``reflect_conv3x3_dw_reference``."""
+    global DW_LAUNCHES
+    _check_dw(x, dy)
+    if x.device.type == "cpu":
+        return reflect_conv3x3_dw_reference(x, dy)
+    _check_cuda(x)
+    _check_cuda(dy)
+    n, h, width, c_in = x.shape
+    c_out = dy.shape[3]
+    splits = dw_splits(x.shape, c_out,
+                       torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((splits, 3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+    fn = _dw_fn()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                 n, h, width, c_in, c_out, splits, _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "reflect_conv3x3_dw")
+    DW_LAUNCHES += 1
+    return dw
+
+
+class _ReflectConv3x3(torch.autograd.Function):
+    """The trunk conv with its hand-written backward (JAX ``_rc_fwd`` /
+    ``_rc_bwd``): the cotangent is cast to x's dtype for ``dx`` and ``dw``,
+    ``db`` is its float32 sum taken before that cast, ``dw`` comes back in
+    the weight's dtype. Double backward is refused."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
+        if x.device.type == "cpu":
+            return reflect_conv3x3_reference(x, w, b)
+        return _launch_forward(x, w, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g_cast = g.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = reflect_conv3x3_dx(g_cast, w)
+        if ctx.needs_input_grad[1]:
+            dw = reflect_conv3x3_dw(x, g_cast).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 1, 2)).to(ctx.b_dtype)
+        return dx, dw, db
+
+
+def reflect_conv3x3(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """reflect-pad(1) + 3x3 valid conv + bias, differentiable in x, w and b.
+    ``x`` is NHWC (contiguous on CUDA), ``w`` HWIO (cast to x's dtype), ``b``
+    (Cout,) in float32.
+
+    On CUDA the forward and backward launch the Hopper kernels on the current
+    stream without synchronising; on the CPU they are the plain versions."""
+    _check(x, w, b)
+    return _ReflectConv3x3.apply(x, w, b)
 
 
 def fused_resblock(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

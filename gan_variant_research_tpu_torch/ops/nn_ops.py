@@ -44,3 +44,10 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int,
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         return t.uniform_(-bound, bound, generator=generator)
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride 2, padding 1, count_include_pad=False) on NHWC,
+    the multiscale discriminator's downsampler."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1, count_include_pad=False)
+    return y.permute(0, 2, 3, 1).contiguous()

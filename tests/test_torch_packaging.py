@@ -44,6 +44,31 @@ def test_port_imports_no_jax():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+TRAIN_SLICE_MODULES = (
+    "core.config", "core.prng", "data.augment", "losses.adversarial", "losses.patchnce",
+    "losses.reconstruction", "models.discriminator_patchgan", "ops.diffaugment",
+    "train.cut_trainer", "train.ema", "train.optim")
+
+
+@pytest.mark.parametrize("module", TRAIN_SLICE_MODULES)
+def test_train_slice_module_imports_without_jax(module):
+    """Each module of the train slice, alone in a fresh interpreter, loads
+    no jax, flax, optax or JAX-package module."""
+    name = f"{PKG}.{module}"
+    assert name in _modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({name!r})\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                             'gan_variant_research_tpu'))))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax():
     banned = ("import jax", "from jax", "import flax", "from flax", "import optax",
               "from optax", "from gan_variant_research_tpu.",
@@ -80,10 +105,13 @@ def test_console_script_resolves(pyproject):
     assert callable(getattr(importlib.import_module(mod_name), attr))
 
 
-def test_kernel_library_name_tracks_its_source():
+@pytest.mark.parametrize("kernel", ["reflect_conv3x3", "reflect_conv3x3_dx",
+                                    "reflect_conv3x3_dw"])
+def test_kernel_library_name_tracks_its_source(kernel):
     from gan_variant_research_tpu_torch.ops.kernels import _build
 
-    lib = _build.library_path("reflect_conv3x3")
+    assert (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").is_file()
+    lib = _build.library_path(kernel)
     assert lib.parent == REPO_ROOT / "build" / "torch_kernels"
-    assert lib.name.startswith("libreflect_conv3x3-") and lib.suffix == ".so"
+    assert lib.name.startswith(f"lib{kernel}-") and lib.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
