@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: serving and training.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: serving and training,
+the flagship generator and the variant one.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,32 @@ Phases, one line each:
 
 1. device   - requires CUDA (there is no CPU fallback); prints the card's
               name and power limit as nvidia-smi gives them;
-2. build    - builds the three hand-written kernels from csrc/ (nvcc,
+2. build    - builds the six hand-written kernels from csrc/ (nvcc,
               sm_90a), all at once;
 3. kernels  - each kernel against its plain PyTorch version on the card
               (TF32 off): the trunk conv, its input grad (dx) and its
               weight grad (dw), at the trunk shapes in float32 and bf16
               and at ragged shapes down to H, W of 2 and 3; dw run twice
-              must be bitwise equal;
-4. autograd - the gradient of one float32 trunk conv through the
-              autograd.Function against autograd of the plain version;
+              must be bitwise equal. The attention forward, dK/dV and dQ
+              at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
+              bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
+              and ragged shapes: float32 within 1e-5 (forward) and 1e-4
+              (gradients) of the largest value; bf16 at most twice as far
+              from the float32 plain version as the bf16 plain version is;
+              each backward kernel run twice bitwise equal;
+4. autograd - the gradients of one float32 trunk conv and of one float32
+              attention core (4, 4096, 32, 256) through their
+              autograd.Functions against autograd of the plain versions;
 5. serve    - the flagship CUT generator (ResNet-9, ngf 64, 9 blocks,
               bf16 compute, fp32 params; weights made from a seed with numpy
               in the JAX package's layout, converted by convert.py) serves 3
               batches of 8 seeded 256x256 photos through stylize_batch, 18
               trunk launches a batch; a float32 forward at batch 2 through
-              the kernel and through the plain version agree to 1e-3;
+              the kernel and through the plain version agree to 1e-3.
+              serve_variant: the same with self-attention after blocks 3
+              and 7, channel attention after block 5 and style gates
+              (gains non-zero): 18 trunk and 2 attention launches a batch,
+              no backward kernel; float32 kernel vs plain to 1e-3;
 6. train    - the flagship CUT step (train_gan_cutpp.yaml as FLAGSHIP_CUT:
               batch 12, 256^2, bf16, PatchGAN ndf 64 with 3 layers, DiffAugment,
               PatchNCE 256 patches on [0, 4, 8, 12, 16], R1 gamma 10 every
@@ -32,12 +44,22 @@ Phases, one line each:
               EMA moved. Then one float32 step at batch 2 through the kernels
               and through the plain versions, from one state and one set of
               draws: losses agree to 1e-4, Adam's mu per leaf to 1e-3 of the
-              leaf's max;
+              leaf's max. train_variant: 4 variant steps (VARIANT_CUT), each
+              launching 54/54/54 trunk and 6/6/6 attention kernels (fwd, dK/dV,
+              dQ: 2 blocks x 3 G passes); losses finite; the attention,
+              channel-attention and style-gate parameters and their EMA
+              moved. Float32 at batch 2: the variant step amplifies any
+              rounding in the attention core, so the kernel path is held to
+              be no farther from a float64-core path than the plain path is
+              (see phase_train_variant);
 7. timing   - trunk conv at batch 32 (serving) and dx, dw at batch 12 (the
-              train step), bf16, against their plain versions (CUDA events);
-              a served batch of 32; ms per train step (warmup and R1) on the
-              kernel path and the plain path; one torch.profiler op table of
-              a warmup step.
+              train step), bf16, against their plain versions and cuDNN's
+              bf16 calls (CUDA events); the attention kernels at (12, 4096,
+              32, 256) bf16 against their plain versions, and the forward and
+              forward + backward against scaled_dot_product_attention; a
+              served batch of 32 of each generator; ms per train step
+              (warmup and R1) of each on the kernel path and the plain path;
+              a torch.profiler op table of a warmup step of each.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON; the last line is
@@ -93,6 +115,19 @@ FLAGSHIP_CUT = {
     "runtime": {"precision": "bf16", "d_real_domain": "monet"},
 }
 
+# The variant generator: the generator half of scripts/probe_variant_step.py
+# (self-attention after blocks 3 and 7, channel attention after block 5,
+# style dropout with alpha in [0.4, 0.9]) on the flagship CUT step.
+VARIANT_G = {"use_attention": True, "attn_layers": [3, 7], "use_channel_attn": True,
+             "channel_attn_layers": [5], "use_style_dropout": True,
+             "style_dropout": {"alpha_min": 0.4, "alpha_max": 0.9}}
+VARIANT_CUT = copy.deepcopy(FLAGSHIP_CUT)
+VARIANT_CUT["model"]["generator"].update(VARIANT_G)
+ATTN_BLOCKS = len(VARIANT_G["attn_layers"])
+ATTN_SHAPE = (12, 4096, 32, 256)        # (B, n, d_qk, d_v) of a batch-12 step's trunk
+# H100 SXM dense peaks (NVIDIA's data sheet) for the bounds
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
@@ -136,6 +171,17 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, iters: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
 
 
 def uniform_conv(rng, kh, c_in, c_out, fan_in):
@@ -209,9 +255,11 @@ def before_instance_norm(name: str) -> bool:
 
 def phase_build() -> None:
     from gan_variant_research_tpu_torch.ops.kernels import _build, resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
 
     builds = {"reflect_conv3x3": resblock._forward_fn, "reflect_conv3x3_dx": resblock._dx_fn,
-              "reflect_conv3x3_dw": resblock._dw_fn}
+              "reflect_conv3x3_dw": resblock._dw_fn, "spatial_attention": sa._forward_fn,
+              "spatial_attention_dkv": sa._dkv_fn, "spatial_attention_dq": sa._dq_fn}
 
     def timed(fn):
         t = time.perf_counter()
@@ -404,35 +452,12 @@ def phase_train(rng, g_tree, d_tree):
           **{f"{k}_max_move": f"{v:.3e}" for k, v in moved.items()})
     check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
 
-    # one float32 step at batch 2, kernel path against plain path
-    cfg32 = copy.deepcopy(cfg)
-    cfg32["runtime"]["precision"] = "fp32"
-    t32 = CUTTrainer(cfg32)
+    # one float32 step at batch 2, kernel path against plain path; cuDNN's
+    # nondeterministic algorithms (the other convs, on both paths) alone
+    # move Adam's mu by up to 1e-2 of a leaf's max between two runs of one
+    # path, so the step runs under cudnn.deterministic
     photos, monets = (t[:2] for t in batches[0])
-    draws = t32.sample_draws(torch.Generator(device="cuda").manual_seed(1), 2)
-    results = []
-    # cuDNN's nondeterministic algorithms (the other convs, on both paths)
-    # alone move Adam's mu by up to 1e-2 of a leaf's max between two runs of
-    # one path; deterministic ones leave ~2e-5 between the paths
-    torch.backends.cudnn.deterministic = True
-    for path in ("kernel", "plain"):
-        st = t32.state_from_jax(g_tree, d_tree, device="cuda")
-        fn = resblock.reflect_conv3x3 if path == "kernel" else resblock.reflect_conv3x3_reference
-        with trunk_conv(resblock, fn):
-            st, losses = t32.train_step(st, photos, monets, step=0, draws=draws)
-        results.append((st, {k: float(v) for k, v in losses.items()}))
-    torch.cuda.synchronize()
-    torch.backends.cudnn.deterministic = False
-    (sk, lk), (sp, lp) = results
-    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lk)
-    mu_rels = {}
-    for net, opt in (("g", "opt_g"), ("d", "opt_d")):
-        mk, mp = getattr(sk, opt).mu, getattr(sp, opt).mu
-        net_max = max(float(t.abs().max()) for t in mp.values())
-        for n in mp:
-            # G's biases before an instance norm: gradient 0, rounding noise
-            scale = net_max if net == "g" and before_instance_norm(n) else float(mp[n].abs().max())
-            mu_rels[f"{net}:{n}"] = float((mk[n] - mp[n]).abs().max()) / max(scale, 1e-30)
+    loss_rel, mu_rels, _ = fp32_step_vs_plain(cfg, g_tree, d_tree, photos, monets)
     worst = sorted(mu_rels, key=mu_rels.get, reverse=True)[:4]
     mu_rel = mu_rels[worst[0]]
     phase("train", dtype="fp32", batch=2, vs="plain", loss_max_rel=f"{loss_rel:.3e}",
@@ -460,9 +485,28 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def phase_timing(gen, rng, net, trainer, state, batches):
+def profile_step(trainer, state, photos, monets, op: str, rows: int) -> None:
+    """One torch.profiler op table of a warmup step, its device busy time
+    and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    trainer.train_step(state, photos, monets, step=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step(state, photos, monets, step=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = device_busy_ms(prof)
+    events = prof.key_averages()
+    sort_by = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    print(events.table(sort_by=sort_by, row_limit=rows), flush=True)
+    phase("timing", op=op, kind="warmup", wall_ms=f"{wall:.2f}",
+          device_busy_ms=f"{busy:.2f}", idle_share=f"{max(0.0, 1 - busy / wall):.4f}")
+
+
+def phase_timing(gen, rng, net, trainer, state, batches):
     from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
     from gan_variant_research_tpu_torch.ops.kernels import resblock
 
@@ -479,31 +523,33 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     x, w, _ = conv_inputs(TRAIN_SHAPE, 256, torch.bfloat16, gen)
     dy = torch.randn(TRAIN_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
     flop = 2 * 9 * int(np.prod(TRAIN_SHAPE)) * 256
+    # cuDNN's bf16 backward-data and backward-weight of the conv on the
+    # reflect-padded input: one PyTorch call each, without the fold of dx
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    w_oihw, dy_nchw = w.permute(3, 2, 0, 1).contiguous(), dy.permute(0, 3, 1, 2)
+
+    def cudnn_grad(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            dy_nchw, xp, w_oihw, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+
     grad_ms = {}
-    for op, kernel, plain, args in (
-            ("dx", resblock.reflect_conv3x3_dx, resblock.reflect_conv3x3_dx_reference, (dy, w)),
-            ("dw", resblock.reflect_conv3x3_dw, resblock.reflect_conv3x3_dw_reference, (x, dy))):
+    for op, kernel, plain, args, library in (
+            ("dx", resblock.reflect_conv3x3_dx, resblock.reflect_conv3x3_dx_reference, (dy, w),
+             cudnn_grad([True, False, False])),
+            ("dw", resblock.reflect_conv3x3_dw, resblock.reflect_conv3x3_dw_reference, (x, dy),
+             cudnn_grad([False, True, False]))):
         # plain, kernel, kernel, plain in one call
         p1 = event_ms(lambda: plain(*args), iters=10)
         k1 = event_ms(lambda: kernel(*args), iters=10)
         k2 = event_ms(lambda: kernel(*args), iters=10)
         p2 = event_ms(lambda: plain(*args), iters=10)
-        grad_ms[op] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        lib = event_ms(library, iters=10)
+        grad_ms[op] = ((k1 + k2) / 2, (p1 + p2) / 2, lib)
         phase("timing", op=f"reflect_conv3x3_{op}", shape="x".join(map(str, TRAIN_SHAPE)),
               dtype="bf16", kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
-              kernel_tflops=f"{flop / grad_ms[op][0] / 1e9:.2f}")
+              cudnn_bf16_ms=f"{lib:.4f}", kernel_tflops=f"{flop / grad_ms[op][0] / 1e9:.2f}")
 
     u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
-
-    def wall_ms(fn, iters: int, warmup: int = 1) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / iters * 1e3
 
     serve = {"kernel": wall_ms(lambda: stylize_batch(net, u8), 3)}
     with trunk_conv(resblock, resblock.reflect_conv3x3_reference):
@@ -526,21 +572,484 @@ def phase_timing(gen, rng, net, trainer, state, batches):
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
 
-    trainer.train_step(state, photos, monets, step=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        trainer.train_step(state, photos, monets, step=1)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    busy = device_busy_ms(prof)
-    events = prof.key_averages()
-    sort_by = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-               else "self_cuda_time_total")
-    print(events.table(sort_by=sort_by, row_limit=40), flush=True)
-    phase("timing", op="train_step_profile", kind="warmup", wall_ms=f"{wall:.2f}",
-          device_busy_ms=f"{busy:.2f}", idle_share=f"{max(0.0, 1 - busy / wall):.4f}")
+    profile_step(trainer, state, photos, monets, "train_step_profile", rows=40)
     return conv_ms, grad_ms
+
+
+# --------------------------------------------------------------------------- #
+# the variant generator: the attention kernels, serving and training
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
+    """The least time for ``flops`` operations and ``nbytes`` of traffic on
+    the card's published peaks, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_flops(shape) -> dict:
+    """Operations of each attention kernel from its shapes: the forward
+    (q k^T, p v), dK/dV (p recomputed, p^T do, do v^T, ds^T q) and dQ (p
+    recomputed, do v^T, ds k)."""
+    b, n, dqk, dv = shape
+    pairs = 2 * b * n * n
+    return {"fwd": pairs * (dqk + dv), "dkv": pairs * (2 * dqk + 2 * dv),
+            "dq": pairs * (2 * dqk + dv)}
+
+
+def attention_bytes(shape, itemsize: int) -> dict:
+    """Each input read once, each output written once."""
+    b, n, dqk, dv = shape
+    qk, vv, row = b * n * dqk * itemsize, b * n * dv * itemsize, b * n * 4
+    return {"fwd": 2 * qk + 2 * vv + row,                 # q, k, v -> o, lse
+            "dkv": 2 * qk + 2 * vv + 2 * row + qk + vv,   # q, k, v, do, lse, di -> dk, dv
+            "dq": 2 * qk + 2 * vv + 2 * row + qk}         # ... -> dq
+
+
+def attention_inputs(shape, dtype, gen):
+    b, n, dqk, dv = shape
+    q = (torch.randn((b, n, dqk), device="cuda", generator=gen) * 0.5).to(dtype)
+    k = (torch.randn((b, n, dqk), device="cuda", generator=gen) * 0.5).to(dtype)
+    v = torch.randn((b, n, dv), device="cuda", generator=gen).to(dtype)
+    do = torch.randn((b, n, dv), device="cuda", generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def attn_counts(sa) -> tuple[int, int, int]:
+    return sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES
+
+
+def reset_attn_counts(sa) -> None:
+    sa.ATTN_LAUNCHES = sa.ATTN_DKV_LAUNCHES = sa.ATTN_DQ_LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def attention_core(sa, fn):
+    """Route the variant blocks' attention core through ``fn``."""
+    real = sa.spatial_attention
+    sa.spatial_attention = fn
+    try:
+        yield
+    finally:
+        sa.spatial_attention = real
+
+
+@contextlib.contextmanager
+def plain_path(resblock, sa):
+    """The trunk conv and the attention core on their plain versions."""
+    with attention_core(sa, sa.spatial_attention_reference), \
+            trunk_conv(resblock, resblock.reflect_conv3x3_reference):
+        yield
+
+
+ATTN_CASES = [((12, 4096, 32, 256), torch.float32), (ATTN_SHAPE, torch.bfloat16),
+              ((32, 4096, 32, 256), torch.bfloat16), ((2, 16384, 32, 256), torch.bfloat16),
+              ((2, 1000, 16, 72), torch.float32), ((2, 1000, 16, 72), torch.bfloat16),
+              ((1, 64, 8, 64), torch.float32), ((1, 64, 8, 64), torch.bfloat16),
+              ((3, 130, 64, 136), torch.bfloat16), ((1, 7, 24, 8), torch.float32)]
+
+
+def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
+    """Each attention kernel against its plain version. float32: within
+    1e-5 (forward) and 1e-4 (gradients) of the largest value. bf16: the
+    kernel and the plain version round at other places (the unnormalised p
+    and ds here, the normalised weights and dp there), so each is held
+    against the float32 plain version on the same bf16 inputs, and the
+    kernel may be at most twice as far from it as the plain version is. The
+    backward kernels run twice must agree bitwise."""
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    errs = {}
+    for shape, dtype in cases:
+        q, k, v, do = attention_inputs(shape, dtype, gen)
+        label = dict(shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1])
+        o, lse = sa.spatial_attention_forward(q, k, v)
+        di = (o.float() * do.float()).sum(-1)
+        dk, dv = sa.spatial_attention_dkv(q, k, v, do, lse, di)
+        dk2, dv2 = sa.spatial_attention_dkv(q, k, v, do, lse, di)
+        dq = sa.spatial_attention_dq(q, k, v, do, lse, di)
+        dq2 = sa.spatial_attention_dq(q, k, v, do, lse, di)
+        torch.cuda.synchronize()
+        got = {"fwd": (o,), "dkv": (dk, dv), "dq": (dq,)}
+        plain = {"fwd": (sa.spatial_attention_reference(q, k, v),),
+                 "dkv": sa.spatial_attention_dkv_reference(q, k, v, do, lse, di),
+                 "dq": (sa.spatial_attention_dq_reference(q, k, v, do, lse, di),)}
+        check(all(a.dtype == dtype and a.shape == b.shape for kind in got
+                  for a, b in zip(got[kind], plain[kind])), f"attention {shape} {dtype}: bad output")
+        if dtype == torch.bfloat16:
+            f32 = [t.float() for t in (q, k, v, do)]
+            truth = {"fwd": (sa.spatial_attention_reference(*f32[:3]),),
+                     "dkv": sa.spatial_attention_dkv_reference(*f32, lse, di),
+                     "dq": (sa.spatial_attention_dq_reference(*f32, lse, di),)}
+        for kind in got:
+            worst, fields = 0.0, {}
+            names = {"fwd": ("o",), "dkv": ("dk", "dv"), "dq": ("dq",)}[kind]
+            for j, (name, a, p_) in enumerate(zip(names, got[kind], plain[kind])):
+                d = float((a.float() - p_.float()).abs().max())
+                scale = float(p_.float().abs().max())
+                fields[f"{name}_max_abs_err"] = f"{d:.3e}"
+                worst = max(worst, d)
+                if dtype == torch.float32:
+                    tol = (1e-5 if kind == "fwd" else 1e-4) * scale
+                    fields[f"{name}_rel_to_max"] = f"{d / scale:.3e}"
+                    check(d <= tol, f"attention {kind} {name} {shape} fp32: {d} over {tol}")
+                else:
+                    t = truth[kind][j]
+                    e_k = float((a.float() - t).abs().max())
+                    e_p = float((p_.float() - t).abs().max())
+                    fields[f"{name}_err_vs_f32"] = f"{e_k:.3e}"
+                    fields[f"{name}_plain_err_vs_f32"] = f"{e_p:.3e}"
+                    check(e_k <= 2 * e_p + 1e-6 * scale,
+                          f"attention {kind} {name} {shape} bf16: {e_k} from float32, "
+                          f"the plain version {e_p}")
+            if kind != "fwd":
+                again = {"dkv": (dk2, dv2), "dq": (dq2,)}[kind]
+                same = all(torch.equal(a, b) for a, b in zip(got[kind], again))
+                fields["bitwise_repeatable"] = same
+                check(same, f"attention {kind} {shape} {dtype}: two runs differ")
+            errs[(kind, shape, dtype)] = worst
+            phase("kernel", name=f"spatial_attention_{kind}" if kind != "fwd"
+                  else "spatial_attention", **label, **fields)
+        del q, k, v, do, o, lse, di, got, plain
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_attention_autograd(gen) -> None:
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    q, k, v, do = attention_inputs((4, 4096, 32, 256), torch.float32, gen)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = sa.spatial_attention(*leaves)
+    check(type(o.grad_fn).__name__ == "_SpatialAttentionBackward", f"grad_fn {o.grad_fn}")
+    got = torch.autograd.grad(o, leaves, do)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(sa.spatial_attention_reference(*leaves), leaves, do)
+    rels = [float((a - e).abs().max() / e.abs().max()) for a, e in zip(got, want)]
+    phase("autograd", op="spatial_attention", shape="4x4096x32x256", dtype="float32",
+          **{f"{n}_rel_to_max": f"{r:.3e}" for n, r in zip(("dq", "dk", "dv"), rels)})
+    check(max(rels) <= 1e-4, f"attention gradients differ from autograd: {rels}")
+
+
+def variant_params(rng: np.random.Generator) -> dict:
+    """The JAX variant generator's param tree at the flagship width: the
+    flagship trunk plus attn_3, attn_7, channel_attn_5 and nine style gates,
+    with non-zero gains (at init every variant block is an identity and the
+    attention core gets no gradient)."""
+    params = flagship_params(rng)
+    c = FLAGSHIP["ngf"] * 2 ** FLAGSHIP["n_downsampling"]
+    for i in VARIANT_G["attn_layers"]:
+        params[f"attn_{i}"] = {name: uniform_conv(rng, 1, c, width, c)
+                               for name, width in (("query", c // 8), ("key", c // 8),
+                                                   ("value", c), ("out", c))}
+        params[f"attn_{i}"]["gamma"] = np.float32(0.5)
+    for i in VARIANT_G["channel_attn_layers"]:
+        inner = c // 16
+        params[f"channel_attn_{i}"] = {
+            "fc1": {"kernel": rng.uniform(-1, 1, (c, inner)).astype(np.float32) / np.sqrt(c),
+                    "bias": np.zeros(inner, np.float32)},
+            "fc2": {"kernel": rng.uniform(-1, 1, (inner, c)).astype(np.float32) / np.sqrt(inner),
+                    "bias": rng.uniform(-0.1, 0.1, c).astype(np.float32)}}
+    for i in range(FLAGSHIP["n_blocks"]):
+        params[f"style_gate_{i}"] = {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                                     "beta": rng.uniform(-0.5, 0.5, c).astype(np.float32)}
+    return params
+
+
+def phase_serve_variant(rng):
+    from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
+    from gan_variant_research_tpu_torch.convert import generator_state_dict_from_jax
+    from gan_variant_research_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cut_trainer import build_generator
+
+    gcfg = dict(FLAGSHIP, **VARIANT_G)
+    net = build_generator(gcfg, DEFAULT_POLICY)
+    net.load_state_dict(generator_state_dict_from_jax(variant_params(rng)))
+    net = net.to("cuda").eval()
+    photos = [torch.from_numpy(rng.integers(0, 256, (SERVE_BATCH, 256, 256, 3), dtype=np.uint8))
+              .cuda() for _ in range(SERVE_BATCHES)]
+    torch.cuda.synchronize()
+    reset_counts(resblock)
+    reset_attn_counts(sa)
+    served = []
+    for u8 in photos:
+        before = (resblock.LAUNCHES, *attn_counts(sa))
+        out = stylize_batch(net, u8)
+        torch.cuda.synchronize()
+        step = tuple(a - b for a, b in zip((resblock.LAUNCHES, *attn_counts(sa)), before))
+        check(step == (TRUNK_CONVS, ATTN_BLOCKS, 0, 0),
+              f"a variant batch launched {step} (trunk, attention fwd/dkv/dq), "
+              f"want {(TRUNK_CONVS, ATTN_BLOCKS, 0, 0)}")
+        served.append(out)
+    launches = (counts(resblock), attn_counts(sa))
+    check(launches[0][1:] == (0, 0), f"serving launched trunk backward kernels: {launches}")
+    for out in served:
+        check(out.dtype == torch.uint8 and tuple(out.shape) == (SERVE_BATCH, 256, 256, 3),
+              f"served {out.dtype} {tuple(out.shape)}")
+        check(float(out.float().std()) > 1.0, "served images are flat")
+    with plain_path(resblock, sa):
+        plain_served = stylize_batch(net, photos[0])
+    level = (served[0].int() - plain_served.int()).abs()
+    phase("serve_variant", model="resnet9-ngf64-9blocks+attn[3,7]+chattn[5]+style",
+          dtype="bf16", batches=SERVE_BATCHES, batch=SERVE_BATCH,
+          launches_trunk=launches[0][0], launches_attn_fwd_dkv_dq="/".join(map(str, launches[1])),
+          uint8_vs_plain_identical=f"{(level == 0).float().mean().item():.5f}",
+          uint8_vs_plain_max_levels=int(level.max()))
+
+    net32 = build_generator(gcfg, FP32_POLICY)
+    net32.load_state_dict(net.state_dict())
+    net32 = net32.to("cuda").eval()
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        y_kernel = net32(x)
+        with plain_path(resblock, sa):
+            y_plain = net32(x)
+    torch.cuda.synchronize()
+    fp32_err = float((y_kernel - y_plain).abs().max())
+    check(bool(torch.isfinite(y_kernel).all()), "non-finite variant generator output")
+    phase("serve_variant", dtype="fp32", batch=2, tanh_max_abs_diff_vs_plain=f"{fp32_err:.3e}")
+    check(fp32_err <= 1e-3, f"fp32 variant forward differs from the plain path by {fp32_err}")
+    return net
+
+
+def zero_gradient_leaf(name: str) -> bool:
+    """G's leaves with an analytic gradient of 0: the conv biases that an
+    instance norm follows, and the attention key's bias (a constant shift
+    of every key leaves the softmax unchanged)."""
+    if name.startswith(("attn_", "channel_attn_", "style_gate_")):
+        return name.endswith("key.bias")
+    return before_instance_norm(name)
+
+
+def phase_train_variant(rng, g_tree, d_tree):
+    """4 bf16 variant steps at batch 12, then the fp32 kernel-vs-plain step."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
+
+    cfg = VARIANT_CUT
+    b, s = cfg["batch_size"], cfg["image_size"]
+    trainer = CUTTrainer(cfg)
+    state = trainer.state_from_jax(g_tree, d_tree, device="cuda")
+    start = {k: {n: t.detach().clone() for n, t in getattr(state, k).items()}
+             for k in ("g_params", "ema")}
+    batches = [(torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda(),
+                torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda())
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    want = (3 * TRUNK_CONVS,) * 3 + (3 * ATTN_BLOCKS,) * 3
+    reset_counts(resblock)
+    reset_attn_counts(sa)
+    for photos, monets in batches:
+        before = (*counts(resblock), *attn_counts(sa))
+        state, losses = trainer.train_step(state, photos, monets)
+        torch.cuda.synchronize()
+        step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
+        vals = {k: float(v) for k, v in losses.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
+        phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
+              launches_trunk="/".join(map(str, step_counts[:3])),
+              launches_attn="/".join(map(str, step_counts[3:])),
+              **{k: f"{v:.5f}" for k, v in vals.items() if k in
+                 ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
+        check(step_counts == want, f"variant step launched {step_counts} (trunk fwd/dx/dw, "
+                                   f"attention fwd/dkv/dq), want {want}")
+    launches = attn_counts(sa)
+    moved = {}
+    for kind in ("g_params", "ema"):
+        for prefix in ("attn_", "channel_attn_", "style_gate_"):
+            moved[f"{kind}:{prefix}"] = max(
+                float((getattr(state, kind)[n].detach() - t).abs().max())
+                for n, t in start[kind].items() if n.startswith(prefix))
+    phase("train_variant", model="cut-resnet9-ngf64+attn[3,7]+chattn[5]+style", dtype="bf16",
+          batch=b, steps=TRAIN_STEPS, launches_attn_fwd_dkv_dq="/".join(map(str, launches)),
+          **{f"{k}_max_move": f"{v:.3e}" for k, v in moved.items()})
+    check(all(v > 0 for v in moved.values()), f"variant parameters did not move: {moved}")
+
+    # float32 steps at batch 2: the kernel path, the plain path, and the
+    # plain path with the attention core in float64 and with its keys
+    # reordered. The variant step amplifies any float32 rounding in the
+    # attention: the reordered plain path alone moves Adam's mu by ~1e-2 of
+    # a leaf's max, and with the style gates' instance norm over the
+    # residual stream and PatchNCE's normalisation by up to ~1 on the
+    # scalar gamma (PERF.md §6). So the
+    # kernel path is held to be no farther from the float64 path than the
+    # plain path is (twice, plus 1e-4), on the variant without those two
+    # (attention and channel attention); the full variant step is reported.
+    photos, monets = (t[:2] for t in batches[0])
+    held_cfg = copy.deepcopy(cfg)
+    held_cfg["model"]["generator"]["use_style_dropout"] = False
+    held_cfg["loss_weights"]["patchnce"] = 0.0
+    no_gates = {k: v for k, v in g_tree.items() if not k.startswith("style_gate_")}
+    for name, step_cfg, tree in (("full", cfg, g_tree), ("attention+channel", held_cfg, no_gates)):
+        loss_rel, mu_rels, to_f64 = fp32_step_vs_plain(step_cfg, tree, d_tree, photos, monets)
+        worst = sorted(mu_rels, key=mu_rels.get, reverse=True)[:3]
+        phase("train_variant", dtype="fp32", batch=2, step=name, held=name != "full",
+              loss_max_rel_vs_plain=f"{loss_rel:.3e}",
+              adam_mu_max_rel_vs_plain=f"{mu_rels[worst[0]]:.3e}",
+              kernel_mu_max_rel_vs_f64_core=f"{to_f64['kernel']:.3e}",
+              plain_mu_max_rel_vs_f64_core=f"{to_f64['plain']:.3e}",
+              reordered_mu_max_rel_vs_f64_core=f"{to_f64['reordered']:.3e}",
+              reordered_mu_max_rel_vs_plain=f"{to_f64['reordered_vs_plain']:.3e}",
+              worst_leaves_vs_plain=",".join(f"{n}={mu_rels[n]:.2e}" for n in worst))
+    check(loss_rel <= 1e-4, f"fp32 variant step losses differ from the plain path by {loss_rel}")
+    check(to_f64["kernel"] <= 2 * to_f64["plain"] + 1e-4,
+          f"fp32 variant step: the kernel path's Adam mu is {to_f64['kernel']} from the "
+          f"float64-core path, the plain path's {to_f64['plain']}")
+    return trainer, state, batches, launches
+
+
+def attention_float64(q, k, v):
+    """The attention core in float64, the yardstick of the float32 step."""
+    attn = torch.softmax(q.double() @ k.double().transpose(1, 2), dim=-1)
+    return (attn @ v.double()).to(q.dtype)
+
+
+def attention_reordered(q, k, v):
+    """The plain attention core with the keys (and values) in another fixed
+    order: the same function, only its float32 sums reordered."""
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    perm = torch.randperm(k.shape[1], generator=torch.Generator().manual_seed(0)).to(k.device)
+    return sa.spatial_attention_reference(q, k[:, perm], v[:, perm])
+
+
+def fp32_step_vs_plain(cfg, g_tree, d_tree, photos, monets):
+    """One float32 step of ``cfg`` from one state and one set of draws on
+    the kernel path, the plain path, and (with attention) the plain path
+    with the attention core in float64 and with its keys reordered, under
+    ``cudnn.deterministic``. Adam mu is compared per leaf relative to the
+    leaf's max (to the net's max on leaves with an analytic gradient of 0).
+    Returns (the losses' largest relative difference kernel vs plain, mu
+    kernel vs plain per leaf, and with attention the largest mu difference
+    of the kernel, the plain and the reordered path from the float64 path,
+    and of the reordered path from the plain one)."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["runtime"]["precision"] = "fp32"
+    t32 = CUTTrainer(cfg32)
+    draws = t32.sample_draws(torch.Generator(device="cuda").manual_seed(1), photos.shape[0])
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    cores = {"f64": attention_float64, "reordered": attention_reordered}
+    attention = cfg32["model"]["generator"].get("use_attention", False)
+    for path in ("kernel", "plain", *(cores if attention else ())):
+        st = t32.state_from_jax(g_tree, d_tree, device="cuda")
+        with contextlib.ExitStack() as stack:
+            if path != "kernel":
+                stack.enter_context(plain_path(resblock, sa))
+            if path in cores:
+                stack.enter_context(attention_core(sa, cores[path]))
+            st, losses = t32.train_step(st, photos, monets, step=0, draws=draws)
+        results[path] = (st, {k: float(v) for k, v in losses.items()})
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+
+    def mu_diff(a, b):
+        rels = {}
+        for net, opt in (("g", "opt_g"), ("d", "opt_d")):
+            ma, mb = getattr(results[a][0], opt).mu, getattr(results[b][0], opt).mu
+            net_max = max(float(t.abs().max()) for t in mb.values())
+            for n in mb:
+                scale = net_max if net == "g" and zero_gradient_leaf(n) else float(mb[n].abs().max())
+                rels[f"{net}:{n}"] = float((ma[n] - mb[n]).abs().max()) / max(scale, 1e-30)
+        return rels
+
+    lk, lp = results["kernel"][1], results["plain"][1]
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lk)
+    to_f64 = {}
+    if attention:
+        to_f64 = {path: max(mu_diff(path, "f64").values())
+                  for path in ("kernel", "plain", "reordered")}
+        to_f64["reordered_vs_plain"] = max(mu_diff("reordered", "plain").values())
+    return loss_rel, mu_diff("kernel", "plain"), to_f64
+
+
+def sdpa(q, k, v):
+    """The one PyTorch call for the same function (a yardstick, never called
+    by the port): one head, q, k (B, 1, n, d_qk), v (B, 1, n, d_v), scale 1."""
+    return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                          scale=1.0)[:, 0]
+
+
+def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
+    from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    shape = ATTN_SHAPE
+    q, k, v, do = attention_inputs(shape, torch.bfloat16, gen)
+    o, lse = sa.spatial_attention_forward(q, k, v)
+    di = (o.float() * do.float()).sum(-1)
+    ops = {"fwd": (lambda: sa.spatial_attention_forward(q, k, v),
+                   lambda: sa.spatial_attention_reference(q, k, v)),
+           "dkv": (lambda: sa.spatial_attention_dkv(q, k, v, do, lse, di),
+                   lambda: sa.spatial_attention_dkv_reference(q, k, v, do, lse, di)),
+           "dq": (lambda: sa.spatial_attention_dq(q, k, v, do, lse, di),
+                  lambda: sa.spatial_attention_dq_reference(q, k, v, do, lse, di))}
+    flops, nbytes = attention_flops(shape), attention_bytes(shape, 2)
+    times = {}
+    for kind, (kernel, plain) in ops.items():
+        # plain, kernel, kernel, plain in one call
+        p1 = event_ms(plain, iters=3)
+        k1 = event_ms(kernel, iters=10)
+        k2 = event_ms(kernel, iters=10)
+        p2 = event_ms(plain, iters=3)
+        times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bound, by = bound_ms(flops[kind], nbytes[kind], PEAK_BF16_FLOPS)
+        phase("timing", op=f"spatial_attention_{kind}", shape="x".join(map(str, shape)),
+              dtype="bf16", kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
+              bound_ms=f"{bound:.4f}", bound_by=by,
+              kernel_tflops=f"{flops[kind] / times[kind][0] / 1e9:.2f}")
+
+    # fwd+bwd through the Function, the plain version and SDPA
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(fn(*leaves), leaves, do)
+
+    library = {"fwd": event_ms(lambda: sdpa(q, k, v), iters=10),
+               "fwd_bwd": event_ms(lambda: fwd_bwd(sdpa), iters=10)}
+    pair = {"kernel": event_ms(lambda: fwd_bwd(sa.spatial_attention), iters=10),
+            "plain": event_ms(lambda: fwd_bwd(sa.spatial_attention_reference), iters=3)}
+    b, n, dqk, dv = shape
+    # the least work of a forward and a backward: q k^T and p v, then dV,
+    # dp, dK and dQ with p kept
+    least = 2 * b * n * n * (dqk + dv) + 2 * b * n * n * (3 * dqk + 2 * dv)
+    phase("timing", op="spatial_attention_fwd_bwd", shape="x".join(map(str, shape)), dtype="bf16",
+          **{f"{k}_ms": f"{v:.4f}" for k, v in pair.items()},
+          sdpa_fwd_ms=f"{library['fwd']:.4f}", sdpa_fwd_bwd_ms=f"{library['fwd_bwd']:.4f}",
+          kernel_fwd_tflops=f"{flops['fwd'] / times['fwd'][0] / 1e9:.2f}",
+          kernel_fwd_bwd_tflops=f"{least / pair['kernel'] / 1e9:.2f}",
+          sdpa_fwd_tflops=f"{flops['fwd'] / library['fwd'] / 1e9:.2f}",
+          sdpa_fwd_bwd_tflops=f"{least / library['fwd_bwd'] / 1e9:.2f}")
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+
+    u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    serve = {"kernel": wall_ms(lambda: stylize_batch(net, u8), 3)}
+    with plain_path(resblock, sa):
+        serve["plain"] = wall_ms(lambda: stylize_batch(net, u8), 2)
+    phase("timing", op="stylize_batch_variant", batch=TIME_BATCH, dtype="bf16",
+          **{f"{k}_ms": f"{v:.3f}" for k, v in serve.items()},
+          **{f"{k}_img_per_s": f"{TIME_BATCH / v * 1e3:.2f}" for k, v in serve.items()})
+
+    photos, monets = batches[0]
+    step_ms = {}
+    for path in ("kernel", "plain"):
+        with plain_path(resblock, sa) if path == "plain" else contextlib.nullcontext():
+            for kind, step in (("warmup", 1), ("r1", 0)):
+                step_ms[(path, kind)] = wall_ms(
+                    lambda s=step: trainer.train_step(state, photos, monets, step=s), 3)
+    phase("timing", op="train_step_variant", batch=photos.shape[0], dtype="bf16",
+          **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
+          kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
+    profile_step(trainer, state, photos, monets, "train_step_variant_profile", rows=30)
+    return {"times": times, "library": library}
 
 
 def main() -> int:
@@ -564,33 +1073,68 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(gen)
+    errs.update(phase_attention_kernels(gen))
     phase_autograd(gen)
+    phase_attention_autograd(gen)
 
-    # 5. serve, 6. train
+    # 5. serve, 6. train: the flagship generator, then the variant one
     rng = np.random.default_rng(0)
     net, serve_launches = phase_serve(rng)
     trainer, state, batches, train_launches = phase_train(rng, flagship_params(rng),
                                                           flagship_d_params(rng))
+    vnet = phase_serve_variant(rng)
+    vtrainer, vstate, vbatches, attn_launches = phase_train_variant(
+        rng, variant_params(rng), flagship_d_params(rng))
 
     # 7. timing
     conv_ms, grad_ms = phase_timing(gen, rng, net, trainer, state, batches)
+    attn = phase_timing_variant(gen, rng, vnet, vtrainer, vstate, vbatches)
 
-    source = "gan_variant_research_tpu_torch/csrc/{}.cu"
-    replaces = "gan_variant_research_tpu/ops/pallas/resblock.py:{}"
     bf16 = torch.bfloat16
+    conv_shape = (TIME_BATCH, 64, 64, 256)
+    conv_flops = {"fwd": 2 * 9 * int(np.prod(conv_shape)) * 256,
+                  "grad": 2 * 9 * int(np.prod(TRAIN_SHAPE)) * 256}
+    act = lambda shape: int(np.prod(shape)) * 2
+    w_bytes = 9 * 256 * 256 * 2
+    conv_bounds = {
+        "fwd": bound_ms(conv_flops["fwd"], 2 * act(conv_shape) + w_bytes + 256 * 4,
+                        PEAK_BF16_FLOPS),
+        "dx": bound_ms(conv_flops["grad"], 2 * act(TRAIN_SHAPE) + w_bytes, PEAK_BF16_FLOPS),
+        "dw": bound_ms(conv_flops["grad"], 2 * act(TRAIN_SHAPE) + 9 * 256 * 256 * 4,
+                       PEAK_BF16_FLOPS)}
+    attn_bounds = {k: bound_ms(attention_flops(ATTN_SHAPE)[k], attention_bytes(ATTN_SHAPE, 2)[k],
+                               PEAK_BF16_FLOPS) for k in ("fwd", "dkv", "dq")}
+
+    def row(name, replaces, launches, err, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"gan_variant_research_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
+    resblock_py = "gan_variant_research_tpu/ops/pallas/resblock.py:{}"
+    flash_py = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
+                "(gan_variant_research_tpu/models/attention.py:129)")
+    times = attn["times"]
     print(json.dumps({"kernels": [
-        {"name": "reflect_conv3x3", "route": "cuda", "source": source.format("reflect_conv3x3"),
-         "replaces": replaces.format(156), "launches": train_launches[0],
-         "max_abs_err": errs[("fwd", CONV_SHAPE, bf16)],
-         "ms": conv_ms["kernel"], "plain_ms": conv_ms["plain"]},
-        {"name": "reflect_conv3x3_dx", "route": "cuda",
-         "source": source.format("reflect_conv3x3_dx"), "replaces": replaces.format(229),
-         "launches": train_launches[1], "max_abs_err": errs[("dx", TRAIN_SHAPE, bf16)],
-         "ms": grad_ms["dx"][0], "plain_ms": grad_ms["dx"][1]},
-        {"name": "reflect_conv3x3_dw", "route": "cuda",
-         "source": source.format("reflect_conv3x3_dw"), "replaces": replaces.format(297),
-         "launches": train_launches[2], "max_abs_err": errs[("dw", TRAIN_SHAPE, bf16)],
-         "ms": grad_ms["dw"][0], "plain_ms": grad_ms["dw"][1]},
+        row("reflect_conv3x3", resblock_py.format(156), train_launches[0],
+            errs[("fwd", CONV_SHAPE, bf16)], conv_ms["kernel"], conv_ms["plain"],
+            conv_bounds["fwd"], conv_ms["cudnn_bf16"]),
+        row("reflect_conv3x3_dx", resblock_py.format(229), train_launches[1],
+            errs[("dx", TRAIN_SHAPE, bf16)], grad_ms["dx"][0], grad_ms["dx"][1],
+            conv_bounds["dx"], grad_ms["dx"][2]),
+        row("reflect_conv3x3_dw", resblock_py.format(297), train_launches[2],
+            errs[("dw", TRAIN_SHAPE, bf16)], grad_ms["dw"][0], grad_ms["dw"][1],
+            conv_bounds["dw"], grad_ms["dw"][2]),
+        row("spatial_attention", flash_py.format(758), attn_launches[0],
+            errs[("fwd", ATTN_SHAPE, bf16)], times["fwd"][0], times["fwd"][1],
+            attn_bounds["fwd"], attn["library"]["fwd"]),
+        row("spatial_attention_dkv", flash_py.format(1121), attn_launches[1],
+            errs[("dkv", ATTN_SHAPE, bf16)], times["dkv"][0], times["dkv"][1],
+            attn_bounds["dkv"], None),
+        row("spatial_attention_dq", flash_py.format(1456), attn_launches[2],
+            errs[("dq", ATTN_SHAPE, bf16)], times["dq"][0], times["dq"][1],
+            attn_bounds["dq"], None),
     ], "serve_launches": serve_launches}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

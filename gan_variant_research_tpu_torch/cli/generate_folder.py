@@ -5,6 +5,7 @@ Counterpart of ``gan_variant_research_tpu/cli/generate_folder.py``:
     python -m gan_variant_research_tpu_torch.cli.generate_folder \\
         --ckpt ckpt_final.msgpack --photos data/photo_jpg --out out_dir \\
         [--batch 32] [--size 256] [--limit N] [--no-ema] [--zip images.zip]
+        [--device cuda]
 
 - reads the JAX package's msgpack checkpoint; EMA-first restore
   (``ema_G.shadow``, then ``generator`` with a warning); the generator is
@@ -15,7 +16,11 @@ Counterpart of ``gan_variant_research_tpu/cli/generate_folder.py``:
   host: PIL JPEG encode, quality 95, 4:4:4, optimize;
 - ``--zip`` also packs flat-renamed ``0.jpg..N.jpg`` for submission.
 
-Runs on the first CUDA device when there is one, else on the CPU.
+Serves on ``--device`` (default ``cuda``, the current CUDA device); it
+raises when there is no CUDA device, unless the caller passes
+``--device cpu``. A variant checkpoint (self-attention, channel attention,
+style dropout) serves with no style draws, so its style gates pass their
+input through, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,7 +57,19 @@ def parse_args(argv=None):
     p.add_argument("--zip", dest="zip_path", default=None,
                    help="Also write a flat submission zip (0.jpg..N.jpg)")
     p.add_argument("--quality", type=int, default=95)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on: cuda (default), cuda:N or cpu")
     return p.parse_args(argv)
+
+
+def serving_device(name: str) -> torch.device:
+    """``name`` as a torch device; a CUDA device that is not there raises
+    (serving never moves to the CPU unless asked)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available; "
+                           "pass --device cpu to serve on the CPU")
+    return device
 
 
 def load_generator_params(ckpt_path: str | Path, use_ema: bool = True,
@@ -176,9 +193,9 @@ def stylize_folder(generator: torch.nn.Module, photos_dir: str | Path,
 
 def main(argv=None):
     args = parse_args(argv)
+    device = serving_device(args.device)
     generator, _ = load_generator_params(args.ckpt, use_ema=not args.no_ema,
                                          direction=args.direction)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     print(f"Serving on {device}", file=sys.stderr)
     stylize_folder(generator.to(device), args.photos, args.out, size=args.size,
                    batch=args.batch, limit=args.limit, quality=args.quality,

@@ -9,7 +9,11 @@ names, so the mapping is one to one:
 - ``res_i``: ``conv{1,2}_kernel`` -> ``conv{1,2}_weight`` OIHW,
   ``conv{1,2}_bias`` as is;
 - ``up_i``: the flipped HWIO correlation kernel -> PyTorch's
-  (in, out, kh, kw) ConvTranspose weight (unflip, then transpose).
+  (in, out, kh, kw) ConvTranspose weight (unflip, then transpose);
+- the variant blocks: ``attn_i/{query,key,value,out}`` (1x1 HWIO ->
+  OIHW, bias as is) and the scalar ``attn_i/gamma``;
+  ``channel_attn_i/fc{1,2}`` (Dense ``kernel`` (in, out) -> ``weight``
+  (out, in), bias as is); ``style_gate_i/{gamma,beta}`` as they are.
 """
 
 from __future__ import annotations
@@ -33,21 +37,38 @@ def _hwio_to_convtranspose(w) -> torch.Tensor:
     return _tensor(np.asarray(w, np.float32)[::-1, ::-1].transpose(2, 3, 0, 1))
 
 
+def _dense_to_linear(w) -> torch.Tensor:
+    return _tensor(np.asarray(w, np.float32).T)
+
+
 def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """Nested dict of arrays (``initial_conv``, ``down_i``,
-    ``res_i/conv{1,2}_{kernel,bias}``, ``up_i``, ``output_conv``) -> the
+    ``res_i/conv{1,2}_{kernel,bias}``, ``up_i``, ``output_conv`` and the
+    variant blocks ``attn_i``, ``channel_attn_i``, ``style_gate_i``) -> the
     port's ``ResNetGenerator.state_dict()``. Raises on modules or leaves it
-    cannot map (attention / style-gate variants)."""
+    cannot map, and on a variant block that lacks one."""
     sd: dict[str, torch.Tensor] = {}
     consumed: set[str] = set()
 
-    def put(module: str, leaves: dict[str, tuple[str, Callable]]):
-        node = dict(params[module])
+    def take(prefix: str, node: dict, leaves: dict[str, tuple[str, Callable]],
+             required: bool = False):
+        node = dict(node)
         for jax_name, (torch_name, fn) in leaves.items():
             if jax_name in node:
-                sd[f"{module}.{torch_name}"] = fn(node.pop(jax_name))
+                sd[f"{prefix}.{torch_name}"] = fn(node.pop(jax_name))
+            elif required:
+                raise ValueError(f"{prefix} lacks its leaf {jax_name!r}")
         if node:
-            raise ValueError(f"{module} has leaves the port cannot map: {sorted(node)}")
+            raise ValueError(f"{prefix} has leaves the port cannot map: {sorted(node)}")
+
+    def put(module: str, leaves: dict[str, tuple[str, Callable]],
+            children: dict[str, dict] | None = None):
+        node = dict(params[module])
+        for child, child_leaves in (children or {}).items():
+            if child not in node:
+                raise ValueError(f"{module} lacks its submodule {child!r}")
+            take(f"{module}.{child}", node.pop(child), child_leaves, required=True)
+        take(module, node, leaves, required=children is not None)
         consumed.add(module)
 
     conv = {"kernel": ("weight", _hwio_to_oihw), "bias": ("bias", _tensor)}
@@ -68,16 +89,24 @@ def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     for i in range(n_down):
         put(f"down_{i}", conv)
         put(f"up_{i}", convt)
+    dense = {"kernel": ("weight", _dense_to_linear), "bias": ("bias", _tensor)}
+    variants = {
+        "attn": ({"gamma": ("gamma", _tensor)},
+                 {name: conv for name in ("query", "key", "value", "out")}),
+        "channel_attn": ({}, {"fc1": dense, "fc2": dense}),
+        "style_gate": ({"gamma": ("gamma", _tensor), "beta": ("beta", _tensor)}, {}),
+    }
     for i in range(n_blocks):
         put(f"res_{i}", res)
+        for kind, (leaves, children) in variants.items():
+            if f"{kind}_{i}" in params:
+                put(f"{kind}_{i}", leaves, children)
     put("output_conv", conv)
 
     extra = sorted(set(params) - consumed)
     if extra:
         raise ValueError(
-            f"Param tree has modules the port's ResNetGenerator does not have: "
-            f"{extra}. Variant checkpoints (use_attention / use_channel_attn / "
-            "use_style_dropout) are not ported yet.")
+            f"Param tree has modules the port's ResNetGenerator does not have: {extra}")
     return sd
 
 

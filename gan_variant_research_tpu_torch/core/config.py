@@ -22,8 +22,10 @@ STEP_KEYS = (
                                     "repulsion")),
     *(f"model.generator.{k}" for k in ("ngf", "n_blocks", "n_downsampling",
                                        "padding_type", "norm", "activation",
-                                       "use_attention", "use_channel_attn",
-                                       "use_style_dropout")),
+                                       "use_attention", "attn_layers", "attn_flash",
+                                       "use_channel_attn", "channel_attn_layers",
+                                       "use_style_dropout", "style_dropout.alpha_min",
+                                       "style_dropout.alpha_max")),
     *(f"model.discriminator.{k}" for k in ("ndf", "n_layers", "num_scales",
                                            "norm", "use_spectral_norm")),
     "patchnce.num_patches", "patchnce.temperature", "patchnce.nce_layers",

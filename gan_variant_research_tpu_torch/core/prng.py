@@ -32,7 +32,10 @@ JITTER = (0.05, 0.05, 0.05, 0.02)   # brightness, contrast, saturation, hue
 class StepDraws:
     """Every random input of one CUT step, named as the JAX step's keys:
     the two ``train_augment`` calls, the three ``diff_augment`` calls
-    (``None`` without DiffAugment) and the per-layer PatchNCE ids."""
+    (``None`` without DiffAugment), the per-layer PatchNCE ids, and the style
+    gates' alphas of the three generator passes (the photo forward, the
+    taps-only forward on the fake, the identity pass), each (n_blocks, B)
+    float32 in [alpha_min, alpha_max] (``None`` without style dropout)."""
 
     photo_aug: AugmentDraws
     monet_aug: AugmentDraws
@@ -40,6 +43,9 @@ class StepDraws:
     da_fake: DiffAugmentDraws | None
     da_g: DiffAugmentDraws | None
     nce: list[torch.Tensor]
+    style_fwd: torch.Tensor | None = None
+    style_nce: torch.Tensor | None = None
+    style_idt: torch.Tensor | None = None
 
 
 def _uniform(gen: torch.Generator, n: int, lo: float, hi: float,
@@ -87,11 +93,20 @@ def sample_diff_augment(gen: torch.Generator, batch: int, size: int, policy,
 
 def sample_step(gen: torch.Generator, batch: int, image_size: int, policy,
                 real_dtype: torch.dtype, fake_dtype: torch.dtype,
-                tap_hw: Sequence[int], num_patches: int) -> StepDraws:
+                tap_hw: Sequence[int], num_patches: int,
+                style: tuple[int, float, float] | None = None) -> StepDraws:
     """One step's draws. ``policy`` is the DiffAugment op list (``None``
-    when it is off); ``tap_hw`` the H*W of each tapped NCE layer."""
+    when it is off); ``tap_hw`` the H*W of each tapped NCE layer; ``style``
+    (n_blocks, alpha_min, alpha_max) with style dropout, else ``None``."""
     da = (lambda dtype: sample_diff_augment(gen, batch, image_size, policy, dtype)
           if policy is not None else None)
+
+    def alphas():
+        if style is None:
+            return None
+        n_blocks, lo, hi = style
+        return _uniform(gen, n_blocks * batch, lo, hi).view(n_blocks, batch)
+
     return StepDraws(
         photo_aug=sample_augment(gen, batch),
         monet_aug=sample_augment(gen, batch),
@@ -99,4 +114,7 @@ def sample_step(gen: torch.Generator, batch: int, image_size: int, policy,
         da_fake=da(fake_dtype),
         da_g=da(fake_dtype),
         nce=[_randint(gen, min(num_patches, hw), 0, hw) for hw in tap_hw],
+        style_fwd=alphas(),
+        style_nce=alphas(),
+        style_idt=alphas(),
     )

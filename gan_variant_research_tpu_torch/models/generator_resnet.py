@@ -10,6 +10,12 @@ Every reflect-padded trunk conv runs through ``reflect_conv3x3``: on a CUDA
 tensor that is the hand-written kernel, whatever the config's ``use_pallas``
 says (``train/cut_trainer.py::build_generator`` reads and ignores the
 TPU-only fields).
+
+The variant blocks (``models/attention.py``) follow their host residual
+block, as in the JAX generator (:274-294): ``attn_i`` for i in
+``attn_layers``, ``channel_attn_i`` for i in ``channel_attn_layers``, and
+``style_gate_i`` after every block with style dropout. The tap of a block
+sees the block's output after them; tap ids do not change.
 """
 
 from __future__ import annotations
@@ -20,6 +26,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gan_variant_research_tpu_torch.models.attention import (
+    ChannelAttention,
+    SelfAttention2d,
+    StyleGate,
+)
 from gan_variant_research_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
@@ -108,18 +119,15 @@ class ResNetGenerator(nn.Module):
                  n_downsampling: int = 2, padding_type: str = "reflect",
                  norm: str = "instance", activation: str = "relu",
                  use_bias: bool = True, use_attention: bool = False,
-                 use_channel_attn: bool = False, use_style_dropout: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 attn_layers: Sequence[int] = (3, 7), attn_flash="auto",
+                 use_channel_attn: bool = False,
+                 channel_attn_layers: Sequence[int] = (5,),
+                 use_style_dropout: bool = False, alpha_min: float = 0.4,
+                 alpha_max: float = 0.9, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
+        """``alpha_min``, ``alpha_max``: the range of the style-dropout draws,
+        which the train step samples (``style_alpha`` of ``forward``)."""
         super().__init__()
-        variants = {"use_attention": (use_attention, "SelfAttention2d"),
-                    "use_channel_attn": (use_channel_attn, "ChannelAttention"),
-                    "use_style_dropout": (use_style_dropout, "StyleGate")}
-        for flag, (on, module) in variants.items():
-            if on:
-                raise NotImplementedError(
-                    f"{flag} ({module}) is not ported yet (ROADMAP.md Queue 1, "
-                    "'Variant attention and gates')")
         self.padding_type = padding_type
         self.norm = norm
         self.act = activation_fn(activation)
@@ -130,6 +138,8 @@ class ResNetGenerator(nn.Module):
         self.initial_conv = Conv2d(3, ngf, 7, padding=stem_pad, use_bias=use_bias, **kw)
         self.n_down = n_downsampling
         self.n_blocks = n_blocks
+        self.use_style_dropout = use_style_dropout
+        self.alpha_range = (float(alpha_min), float(alpha_max))
         for i in range(n_downsampling):
             mult = 2 ** i
             self.add_module(f"down_{i}", Conv2d(
@@ -140,6 +150,13 @@ class ResNetGenerator(nn.Module):
             self.add_module(f"res_{i}", ResidualBlock(
                 res_channels, padding_type=padding_type, norm=norm,
                 activation=activation, use_bias=use_bias, **kw))
+            if use_attention and i in tuple(attn_layers):
+                self.add_module(f"attn_{i}", SelfAttention2d(res_channels, flash=attn_flash,
+                                                             **kw))
+            if use_channel_attn and i in tuple(channel_attn_layers):
+                self.add_module(f"channel_attn_{i}", ChannelAttention(res_channels, **kw))
+            if use_style_dropout:
+                self.add_module(f"style_gate_{i}", StyleGate(res_channels))
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             self.add_module(f"up_{i}", ConvTranspose2d(
@@ -149,11 +166,30 @@ class ResNetGenerator(nn.Module):
         self.output_conv = Conv2d(ngf, output_nc, 7, padding=stem_pad,
                                   use_bias=True, **kw)
 
+    def _trunk_block(self, h: torch.Tensor, i: int,
+                     style_alpha: torch.Tensor | None) -> torch.Tensor:
+        """Residual block i, then its variant blocks."""
+        h = getattr(self, f"res_{i}")(h)
+        for name in (f"attn_{i}", f"channel_attn_{i}"):
+            if hasattr(self, name):
+                h = getattr(self, name)(h)
+        if self.use_style_dropout:
+            h = getattr(self, f"style_gate_{i}")(
+                h, None if style_alpha is None else style_alpha[i])
+        return h
+
     def forward(self, x: torch.Tensor, extract: Sequence[int] | None = None,
-                taps_only: bool = False):
+                taps_only: bool = False, style_alpha: torch.Tensor | None = None):
         """``taps_only=True`` (with ``extract``) stops after the last
         existing tap and returns (None, feats): the train step's forward on
-        the fake needs only the PatchNCE features."""
+        the fake needs only the PatchNCE features. ``style_alpha``
+        (n_blocks, B) holds the style gates' draws; without it, or without
+        style dropout, the gates pass their input through."""
+        if not self.use_style_dropout:
+            style_alpha = None
+        elif style_alpha is not None and style_alpha.shape != (self.n_blocks, x.shape[0]):
+            raise ValueError(f"style_alpha must be ({self.n_blocks}, {x.shape[0]}), "
+                             f"got {tuple(style_alpha.shape)}")
         tap_set = set(extract) if extract is not None else set()
         n_layers = 1 + 2 * self.n_down + self.n_blocks
         last = max((i for i in tap_set if i < n_layers), default=-1)
@@ -163,7 +199,8 @@ class ResNetGenerator(nn.Module):
             pad_2d(h, 3, "reflect") if reflect else h), self.norm))]
         stages += [lambda h, i=i: self.act(_norm(getattr(self, f"down_{i}")(h), self.norm))
                    for i in range(self.n_down)]
-        stages += [lambda h, i=i: getattr(self, f"res_{i}")(h) for i in range(self.n_blocks)]
+        stages += [lambda h, i=i: self._trunk_block(h, i, style_alpha)
+                   for i in range(self.n_blocks)]
         stages += [lambda h, i=i: self.act(_norm(getattr(self, f"up_{i}")(h), self.norm))
                    for i in range(self.n_down)]
         h = x.to(self.dtype)

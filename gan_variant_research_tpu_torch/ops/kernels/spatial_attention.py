@@ -1,0 +1,263 @@
+"""The spatial self-attention core of the SAGAN block, and its gradients.
+
+Counterpart of the Pallas TPU flash attention behind
+``gan_variant_research_tpu/models/attention.py::flash_spatial_attention``
+(the library kernel ``jax.experimental.pallas.ops.tpu.flash_attention``
+with ``sm_scale=1``, non-causal), and of the einsum core it replaces
+(attention.py:188-191).
+
+- ``spatial_attention(q, k, v)``: ``softmax(q k^T) v`` for q, k (B, n, d_qk)
+  and v (B, n, d_v), differentiable through ``_SpatialAttention`` (a
+  ``torch.autograd.Function``). On a CUDA tensor its forward is
+  ``csrc/spatial_attention.cu`` and its backward ``csrc/
+  spatial_attention_dkv.cu`` and ``csrc/spatial_attention_dq.cu``; on a CPU
+  tensor they are the plain versions.
+- ``spatial_attention_forward(q, k, v) -> (o, lse)``, ``spatial_attention_dkv
+  (q, k, v, do, lse, di) -> (dk, dv)``, ``spatial_attention_dq(q, k, v, do,
+  lse, di) -> dq``: the three kernels' wrappers. ``lse`` (B, n) float32 is
+  the row log-sum-exp of the logits, ``di`` (B, n) float32 is ``sum(o * do)``
+  over d_v, taken outside the kernels as the library takes it.
+
+The kernels take one head: q and k are not padded to 128 and v is not split
+into 128-wide heads, which only the TPU kernel needs (the heads share the
+weights, so one head is the same function). Limits: 8 <= d_qk <= 64 and
+8 <= d_v <= 256, both multiples of 8, any n >= 1, B <= 65535; a CUDA
+tensor outside them raises. A CUDA tensor launches the kernel (built at
+first use) or raises; the plain versions serve CPU tensors.
+``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES`` and ``ATTN_DQ_LAUNCHES`` count the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+ATTN_LAUNCHES = 0
+ATTN_DKV_LAUNCHES = 0
+ATTN_DQ_LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_DQK, _MAX_DV, _MAX_BATCH = 64, 256, 65535
+
+
+def _load(name: str, symbol: str, n_ptr: int, n_int: int):
+    from gan_variant_research_tpu_torch.ops.kernels._build import load_library
+
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _forward_fn():
+    return _load("spatial_attention", "spatial_attention_forward", 5, 5)
+
+
+@functools.cache
+def _dkv_fn():
+    return _load("spatial_attention_dkv", "spatial_attention_dkv", 8, 5)
+
+
+@functools.cache
+def _dq_fn():
+    return _load("spatial_attention_dq", "spatial_attention_dq", 7, 5)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"q, k must be (B, n, d_qk) and v (B, n, d_v), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    devs = {str(t.device) for t in (q, k, v)}
+    if len(devs) != 1 or q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"q, k, v must share a CPU or CUDA device, got {sorted(devs)}")
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    """What the kernels take: the limits above, contiguous 16-byte aligned
+    tensors."""
+    b, n, dqk = ts[0].shape
+    dv = ts[2].shape[2]
+    if not (8 <= dqk <= _MAX_DQK and dqk % 8 == 0 and 8 <= dv <= _MAX_DV and dv % 8 == 0):
+        raise ValueError(f"the attention kernels take d_qk in [8, {_MAX_DQK}] and d_v in "
+                         f"[8, {_MAX_DV}], multiples of 8; got d_qk={dqk}, d_v={dv}")
+    if not 1 <= b <= _MAX_BATCH or n < 1:
+        raise ValueError(f"the attention kernels take 1 <= B <= {_MAX_BATCH} and n >= 1, "
+                         f"got B={b}, n={n}")
+    for t in ts:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the attention kernels take contiguous, 16-byte aligned tensors")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------- #
+# plain versions (CPU path and the card's comparisons)
+
+def _logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    # float32 products of the inputs' values (exact for bf16) and float32 sums
+    return q.float() @ k.float().transpose(1, 2)
+
+
+def _plain_forward(q, k, v):
+    logits = _logits(q, k)
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    return (attn.float() @ v.float()).to(q.dtype), torch.logsumexp(logits, dim=-1)
+
+
+def spatial_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """The JAX einsum core (attention.py:188-191): float32 logits, float32
+    softmax, the normalised weights cast to v's dtype, then the weighted sum
+    in float32 and one cast to q's dtype."""
+    _check(q, k, v)
+    return _plain_forward(q, k, v)[0]
+
+
+def _plain_grads(q, k, v, do):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = spatial_attention_reference(*leaves)
+        return torch.autograd.grad(o, leaves, do.to(o.dtype))
+
+
+def spatial_attention_dkv_reference(q, k, v, do, lse, di):
+    """dK, dV by autograd of ``spatial_attention_reference`` for the cotangent
+    ``do`` (``lse`` and ``di`` are taken for the kernel's signature and not
+    read)."""
+    _check(q, k, v)
+    return tuple(_plain_grads(q, k, v, do)[1:])
+
+
+def spatial_attention_dq_reference(q, k, v, do, lse, di):
+    """dQ by autograd of ``spatial_attention_reference`` for the cotangent
+    ``do`` (``lse`` and ``di`` are not read)."""
+    _check(q, k, v)
+    return _plain_grads(q, k, v, do)[0]
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor
+
+def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o in q's dtype, lse (B, n) float32). On CUDA it launches
+    ``csrc/spatial_attention.cu`` on the current stream."""
+    global ATTN_LAUNCHES
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return _plain_forward(q, k, v)
+    _check_cuda(q, k, v)
+    b, n, dqk = q.shape
+    dv = v.shape[2]
+    o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    fn = _forward_fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                 b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "spatial_attention")
+    ATTN_LAUNCHES += 1
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, di) -> None:
+    _check(q, k, v)
+    b, n = q.shape[:2]
+    if do.shape != v.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must be {tuple(v.shape)} {q.dtype} on {q.device}, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != (b, n) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be ({b}, {n}) float32 on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in the inputs' dtype, the same bits from run to run. On CUDA
+    it launches ``csrc/spatial_attention_dkv.cu``."""
+    global ATTN_DKV_LAUNCHES
+    _check_bwd(q, k, v, do, lse, di)
+    if q.device.type == "cpu":
+        return spatial_attention_dkv_reference(q, k, v, do, lse, di)
+    _check_cuda(q, k, v, do, lse, di)
+    b, n, dqk = q.shape
+    dv = v.shape[2]
+    dk, dv_out = torch.empty_like(k), torch.empty_like(v)
+    fn = _dkv_fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, n, dqk, dv,
+                 _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "spatial_attention_dkv")
+    ATTN_DKV_LAUNCHES += 1
+    return dk, dv_out
+
+
+def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
+    """dq in the inputs' dtype, the same bits from run to run. On CUDA it
+    launches ``csrc/spatial_attention_dq.cu``."""
+    global ATTN_DQ_LAUNCHES
+    _check_bwd(q, k, v, do, lse, di)
+    if q.device.type == "cpu":
+        return spatial_attention_dq_reference(q, k, v, do, lse, di)
+    _check_cuda(q, k, v, do, lse, di)
+    b, n, dqk = q.shape
+    dq = torch.empty_like(q)
+    fn = _dq_fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 di.data_ptr(), dq.data_ptr(), b, n, dqk, v.shape[2],
+                 _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on(err, "spatial_attention_dq")
+    ATTN_DQ_LAUNCHES += 1
+    return dq
+
+
+class _SpatialAttention(torch.autograd.Function):
+    """The core with its hand-written backward (the library's custom VJP):
+    the cotangent is cast to q's dtype, ``di`` is its float32 product with
+    the saved output. Double backward is refused."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = spatial_attention_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        di = (o.float() * do.float()).sum(-1)
+        dq = dk = dv = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = spatial_attention_dkv(q, k, v, do, lse, di)
+        if ctx.needs_input_grad[0]:
+            dq = spatial_attention_dq(q, k, v, do, lse, di)
+        return dq, dk, dv
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q k^T) v``, differentiable in q, k and v: q, k (B, n, d_qk),
+    v (B, n, d_v), one dtype (float32 or bfloat16); returns (B, n, d_v) in
+    q's dtype. On CUDA the forward and backward launch the Hopper kernels on
+    the current stream without synchronising; on the CPU they are the plain
+    versions."""
+    _check(q, k, v)
+    return _SpatialAttention.apply(q, k, v)

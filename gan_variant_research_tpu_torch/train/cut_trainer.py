@@ -18,6 +18,10 @@ Counterpart of ``gan_variant_research_tpu/train/cut_trainer.py``
    ``runtime.identity_fp32``), weighted into G's gradient;
 7. Adam behind the global-norm clip for G, then the EMA.
 
+With style dropout the three generator passes take the step's three
+draws of gate alphas (``StepDraws.style_fwd``, ``style_nce``,
+``style_idt``), as the JAX step hands them three keys.
+
 Modules are stateless templates, as flax modules are: the state holds the
 parameters as dicts of tensors and the step calls the modules through
 ``torch.func.functional_call``. The step updates the state's tensors in
@@ -63,9 +67,12 @@ def build_generator(gen_cfg: dict, policy: Policy,
                     generator: torch.Generator | None = None) -> ResNetGenerator:
     """``model.generator`` config -> ``ResNetGenerator`` in the policy's
     compute dtype. The TPU-only fields (``use_pallas``, ``pad_free``,
-    ``remat``, ``use_s2d``, ``attn_flash``) are read by the JAX package only
-    and ignored here: on CUDA the trunk always runs the hand-written kernel.
+    ``remat``, ``use_s2d``) are read by the JAX package only and ignored
+    here: on CUDA the trunk always runs the hand-written kernel, and
+    ``attn_flash`` is validated and otherwise ignored (the attention core is
+    the hand-written kernel on CUDA, the plain version on the CPU).
     ``generator`` seeds the parameter init."""
+    sd = gen_cfg.get("style_dropout") or {}
     return ResNetGenerator(
         output_nc=3,
         ngf=gen_cfg.get("ngf", 64),
@@ -75,8 +82,13 @@ def build_generator(gen_cfg: dict, policy: Policy,
         norm=gen_cfg.get("norm", "instance"),
         activation=gen_cfg.get("activation", "relu"),
         use_attention=gen_cfg.get("use_attention", False),
+        attn_layers=tuple(gen_cfg.get("attn_layers", (3, 7))),
+        attn_flash=gen_cfg.get("attn_flash", "auto"),
         use_channel_attn=gen_cfg.get("use_channel_attn", False),
+        channel_attn_layers=tuple(gen_cfg.get("channel_attn_layers", (5,))),
         use_style_dropout=gen_cfg.get("use_style_dropout", False),
+        alpha_min=sd.get("alpha_min", 0.4),
+        alpha_max=sd.get("alpha_max", 0.9),
         dtype=policy.compute_dtype,
         generator=generator,
     )
@@ -157,9 +169,10 @@ class CUTTrainer:
     # ------------------------------------------------------------------ #
 
     def init_state(self, seed: int | None = None,
-                   device: torch.device | str = "cpu") -> CUTTrainState:
+                   device: torch.device | str = "cuda") -> CUTTrainState:
         """Fresh parameters (PyTorch's default init, seeded), zero Adam
-        moments, the EMA shadow as a copy."""
+        moments, the EMA shadow as a copy, on ``device`` (the card unless
+        the caller asks for the CPU)."""
         seed = int(seed if seed is not None else self.config.get("seed", 42))
         gen = torch.Generator().manual_seed(seed)
         g = build_generator(self.config["model"]["generator"], self.policy, gen)
@@ -167,9 +180,10 @@ class CUTTrainer:
         return self.state_from_state_dicts(g.state_dict(), d.state_dict(), seed, device)
 
     def state_from_jax(self, g_params: dict, d_params: dict, seed: int | None = None,
-                       device: torch.device | str = "cpu") -> CUTTrainState:
+                       device: torch.device | str = "cuda") -> CUTTrainState:
         """A fresh state on JAX param trees (nested dicts of arrays),
-        converted by ``convert.py``."""
+        converted by ``convert.py``, on ``device`` (the card unless the
+        caller asks for the CPU)."""
         seed = int(seed if seed is not None else self.config.get("seed", 42))
         return self.state_from_state_dicts(generator_state_dict_from_jax(g_params),
                                            discriminator_state_dict_from_jax(d_params),
@@ -220,10 +234,12 @@ class CUTTrainer:
         return [sizes[i] ** 2 for i in sorted(set(self.nce_layers)) if 0 <= i < len(sizes)]
 
     def sample_draws(self, rng: torch.Generator, batch: int) -> StepDraws:
+        g = self.generator
         return sample_step(rng, batch, self.image_size, self.da_policy,
                            real_dtype=torch.float32, fake_dtype=self.policy.compute_dtype,
                            tap_hw=self.nce_tap_hw() if self.nce_w > 0 else [],
-                           num_patches=self.num_patches)
+                           num_patches=self.num_patches,
+                           style=(g.n_blocks, *g.alpha_range) if g.use_style_dropout else None)
 
     # ------------------------------------------------------------------ #
 
@@ -257,12 +273,15 @@ class CUTTrainer:
         # one G forward serves the D step, the adversarial head and both
         # sides of PatchNCE
         if self.nce_w > 0:
-            fake, src_feats = functional_call(self.generator, g_params, (photos,),
-                                              {"extract": self.nce_layers})
-            _, tgt_feats = functional_call(self.generator, g_params, (fake,),
-                                           {"extract": self.nce_layers, "taps_only": True})
+            fake, src_feats = functional_call(
+                self.generator, g_params, (photos,),
+                {"extract": self.nce_layers, "style_alpha": draws.style_fwd})
+            _, tgt_feats = functional_call(
+                self.generator, g_params, (fake,),
+                {"extract": self.nce_layers, "taps_only": True, "style_alpha": draws.style_nce})
         else:
-            fake = functional_call(self.generator, g_params, (photos,))
+            fake = functional_call(self.generator, g_params, (photos,),
+                                   {"style_alpha": draws.style_fwd})
             src_feats = tgt_feats = []
 
         # ---------------- D step ----------------
@@ -298,7 +317,8 @@ class CUTTrainer:
 
         if do_identity:
             idt_gen = self.generator_f32 if self.identity_fp32 else self.generator
-            rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),))
+            rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),),
+                                  {"style_alpha": draws.style_idt})
             idt = identity_loss(rec, monets)
             idt_grads = torch.autograd.grad(idt, list(g_params.values()))
             g_grads = [g + identity_weight * ig for g, ig in zip(g_grads, idt_grads)]

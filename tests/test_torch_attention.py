@@ -1,0 +1,252 @@
+"""The port's spatial attention core and the variant blocks against the JAX
+package: the plain core against the Pallas flash kernel (interpret mode)
+and the einsum core, the autograd.Function on the CPU, and
+``SelfAttention2d``, ``ChannelAttention`` and ``StyleGate`` against the
+flax modules on converted weights with non-zero gains. Inputs from a numpy
+seed; JAX on the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gan_variant_research_tpu.models.attention import (
+    ChannelAttention as JaxChannelAttention,
+    SelfAttention2d as JaxSelfAttention2d,
+    StyleGate as JaxStyleGate,
+    flash_spatial_attention,
+)
+from gan_variant_research_tpu_torch.convert import _dense_to_linear, _hwio_to_oihw
+from gan_variant_research_tpu_torch.core.precision import FP32_POLICY
+from gan_variant_research_tpu_torch.models.attention import (
+    ChannelAttention,
+    SelfAttention2d,
+    StyleGate,
+)
+from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+from gan_variant_research_tpu_torch.train.cut_trainer import build_generator
+
+JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _qkv(shape, seed=0):
+    b, n, dqk, dv = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, n, dqk)).astype(np.float32),
+            rng.standard_normal((b, n, dqk)).astype(np.float32),
+            rng.standard_normal((b, n, dv)).astype(np.float32),
+            rng.standard_normal((b, n, dv)).astype(np.float32))
+
+
+def _port_grads(fn, q, k, v, g, dtype=torch.float32):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    o = fn(*leaves)
+    grads = torch.autograd.grad(o, leaves, torch.from_numpy(g).to(dtype))
+    return o.detach().float().numpy(), [t.float().numpy() for t in grads]
+
+
+def _rel_to_max(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_plain_core_matches_jax_flash_kernel_in_interpret_mode():
+    """The shape test_attention_variants.py runs the Pallas kernel at:
+    (B, n, d_qk, d_v) = (2, 1024, 16, 128), float32."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    q, k, v, g = _qkv((2, 1024, 16, 128))
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(flash_spatial_attention, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v))
+        want_grads = vjp(jnp.asarray(g))
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g)
+    # float32 both sides; the softmax and the sums run in another order
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        assert _rel_to_max(a, np.asarray(b)) <= 1e-4, name
+
+
+def _jax_einsum_core(q, k, v):
+    """SelfAttention2d's einsum path (attention.py:188-191)."""
+    logits = jnp.einsum("bqc,bkc->bqk", q, k, preferred_element_type=jnp.float32)
+    attn = jax.nn.softmax(logits, axis=-1).astype(v.dtype)
+    return jnp.einsum("bqk,bkc->bqc", attn, v)
+
+
+def _bf16_ulp(x):
+    mag = np.maximum(np.abs(x), 2.0 ** -126)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7 * 9, 8, 24), (1, 5 * 3, 16, 40)])
+def test_plain_core_matches_jax_einsum_core(shape, dtype):
+    q, k, v, g = _qkv(shape, seed=1)
+    jd = JAX_DTYPES[dtype]
+    args = [jnp.asarray(a, jd) for a in (q, k, v)]
+    want, vjp = jax.vjp(_jax_einsum_core, *args)
+    want = np.asarray(want.astype(jnp.float32))
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g, dtype)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+        want_grads = vjp(jnp.asarray(g))
+        for name, a, b in zip("qkv", got_grads, want_grads):
+            assert _rel_to_max(a, np.asarray(b)) <= 1e-5, name
+    else:
+        # the same rounding points (bf16 weights, one cast of a float32 sum):
+        # one bf16 ulp apart where the sums' order tips a rounding
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+
+
+def test_function_on_the_cpu_is_autograd_of_the_plain_version():
+    q, k, v, g = _qkv((2, 50, 8, 16), seed=2)
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g)
+    want, want_grads = _port_grads(sa.spatial_attention_reference, q, k, v, g)
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(got_grads, want_grads):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
+    q, k, v, g = (torch.from_numpy(a) for a in _qkv((2, 33, 8, 16), seed=3))
+    before = (sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES)
+    o, lse = sa.spatial_attention_forward(q, k, v)
+    torch.testing.assert_close(o, sa.spatial_attention_reference(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(lse, torch.logsumexp(q @ k.transpose(1, 2), -1))
+    di = (o * g).sum(-1)
+    dk, dv = sa.spatial_attention_dkv(q, k, v, g, lse, di)
+    dq = sa.spatial_attention_dq(q, k, v, g, lse, di)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(sa.spatial_attention_reference(*leaves), leaves, g)
+    for a, b in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape, message", [
+    ((1, 64, 4, 32), "d_qk"), ((1, 64, 72, 32), "d_qk"), ((1, 64, 12, 32), "d_qk"),
+    ((1, 64, 8, 264), "d_v"), ((1, 64, 8, 20), "d_v")])
+def test_kernel_limits_are_checked_before_a_launch(shape, message):
+    b, n, dqk, dv = shape
+    q = torch.zeros(b, n, dqk)
+    with pytest.raises(ValueError, match=message):
+        sa._check_cuda(q, q, torch.zeros(b, n, dv))
+
+
+def test_wrappers_refuse_mismatched_inputs():
+    q = torch.zeros(2, 16, 8)
+    with pytest.raises(ValueError, match="B, n"):
+        sa.spatial_attention(q, torch.zeros(2, 15, 8), torch.zeros(2, 16, 8))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sa.spatial_attention(q, q, torch.zeros(2, 16, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="lse"):
+        sa.spatial_attention_dq(q, q, q, q, torch.zeros(2, 15), torch.zeros(2, 16))
+
+
+# --------------------------------------------------------------------------- #
+# the modules, with converted weights and non-zero gains
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(lambda a: np.array(a, np.float32), tree)
+
+
+def _load(module, flat):
+    missing, unexpected = module.load_state_dict(
+        {k: torch.as_tensor(v) for k, v in flat.items()}, strict=True)
+    assert not missing and not unexpected
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _compare(got, want, dtype):
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    got = got.detach().float().numpy()
+    # float32: convs and sums in another order; bf16: the same rounding
+    # points, a few ulps of the output's scale where an order tips one
+    assert _rel_to_max(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_attention_matches_flax(dtype):
+    c = 32
+    x = _x((2, 6, 7, c), 4)
+    jmod = JaxSelfAttention2d(c, flash=False, dtype=JAX_DTYPES[dtype])
+    params = _np_tree(jmod.init(jax.random.PRNGKey(0),
+                                jnp.asarray(x, JAX_DTYPES[dtype]))["params"])
+    params["gamma"] = np.float32(0.5)
+    flat = {f"{m}.{leaf}": fn(params[m][jl]) for m in ("query", "key", "value", "out")
+            for jl, (leaf, fn) in {"kernel": ("weight", _hwio_to_oihw),
+                                   "bias": ("bias", torch.from_numpy)}.items()}
+    flat["gamma"] = torch.tensor(0.5)
+    mod = SelfAttention2d(c, dtype=dtype)
+    _load(mod, flat)
+    want = jmod.apply({"params": params}, jnp.asarray(x, JAX_DTYPES[dtype]))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x).to(dtype))
+    assert got.dtype == dtype
+    _compare(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_attention_matches_flax(dtype):
+    c = 32
+    x = _x((2, 5, 5, c), 5)
+    jmod = JaxChannelAttention(c, dtype=JAX_DTYPES[dtype])
+    params = _np_tree(jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"])
+    rng = np.random.default_rng(6)
+    params["fc2"]["kernel"] = rng.standard_normal(params["fc2"]["kernel"].shape).astype(np.float32)
+    params["fc2"]["bias"] = rng.standard_normal(params["fc2"]["bias"].shape).astype(np.float32)
+    mod = ChannelAttention(c, dtype=dtype)
+    _load(mod, {f"{fc}.{leaf}": fn(params[fc][jl]) for fc in ("fc1", "fc2")
+                for jl, (leaf, fn) in {"kernel": ("weight", _dense_to_linear),
+                                       "bias": ("bias", torch.from_numpy)}.items()})
+    want = jmod.apply({"params": params}, jnp.asarray(x, JAX_DTYPES[dtype]))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x).to(dtype))
+    _compare(got, want, dtype)
+    assert not np.allclose(got.float().numpy(), x, atol=1e-2)   # the gate is not 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_style_gate_matches_flax_with_jax_draws(dtype):
+    c, b = 16, 3
+    x = _x((b, 4, 6, c), 7)
+    jmod = JaxStyleGate(c, alpha_min=0.4, alpha_max=0.9, dtype=JAX_DTYPES[dtype])
+    rng = np.random.default_rng(8)
+    params = {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+              "beta": rng.uniform(-0.5, 0.5, c).astype(np.float32)}
+    key = jax.random.PRNGKey(9)
+    # the JAX gate's own draw
+    alpha = jax.random.uniform(key, (b, 1, 1, 1), jnp.float32, minval=0.4, maxval=0.9)
+    want = jmod.apply({"params": params}, jnp.asarray(x, JAX_DTYPES[dtype]), key)
+    mod = StyleGate(c)
+    _load(mod, params)
+    xt = torch.from_numpy(x).to(dtype)
+    with torch.no_grad():
+        got = mod(xt, torch.from_numpy(np.array(alpha).reshape(b)))
+        assert torch.equal(mod(xt), xt)   # no draw: the input itself
+    _compare(got, want, dtype)
+
+
+@pytest.mark.parametrize("flash", ["false", "off", "Auto", "true"])
+def test_attn_flash_is_validated_as_in_jax(flash):
+    with pytest.raises(ValueError, match="attn_flash"):
+        SelfAttention2d(32, flash=flash)
+    with pytest.raises(ValueError, match="attn_flash"):
+        build_generator({"ngf": 8, "n_blocks": 2, "use_attention": True,
+                         "attn_layers": [0], "attn_flash": flash}, FP32_POLICY)
+
+
+@pytest.mark.parametrize("flash", [True, False, "auto"])
+def test_attn_flash_selects_nothing(flash):
+    x = torch.from_numpy(_x((1, 4, 4, 16), 10))
+    mod = SelfAttention2d(16, flash=flash, generator=torch.Generator().manual_seed(0))
+    ref = SelfAttention2d(16, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        mod.gamma.fill_(0.5)
+        ref.gamma.fill_(0.5)
+        torch.testing.assert_close(mod(x), ref(x), rtol=0, atol=0)

@@ -366,7 +366,7 @@ def test_init_state_is_fresh_and_seeded():
     cfg = {"model": {"generator": {"ngf": 4, "n_blocks": 1},
                      "discriminator": {"ndf": 4, "n_layers": 1}}, "seed": 3}
     t = CUTTrainer(cfg)
-    a, b = t.init_state(), t.init_state()
+    a, b = t.init_state(device="cpu"), t.init_state(device="cpu")
     assert set(a.g_params) == set(t.generator.state_dict())
     assert set(a.d_params) == set(t.discriminator.state_dict())
     for k, p in a.g_params.items():

@@ -1,7 +1,9 @@
 """The port's CUT train step against the JAX ``CUTTrainer``, two steps from
 the same params and the same draws: step 0 with R1 and identity, step 1
 with identity only. Tiny config (ngf 4, 2 blocks, 32^2, batch 2), float32,
-one device, JAX on the CPU."""
+one device, JAX on the CPU; and the same for the variant generator
+(self-attention after block 0, channel attention after block 1, style
+dropout), with non-zero gains and the nine-stream draws."""
 
 from types import SimpleNamespace
 
@@ -68,18 +70,52 @@ def _eager_train_augment(key, images_u8, image_size):
     return jax.pure_callback(host, shape, jax.random.key_data(key), images_u8)
 
 
-@pytest.fixture(scope="module")
-def two_steps():
+VARIANT_GENERATOR = {"use_attention": True, "attn_layers": [0], "use_channel_attn": True,
+                     "channel_attn_layers": [1], "use_style_dropout": True,
+                     "style_dropout": {"alpha_min": 0.3, "alpha_max": 0.8}}
+
+
+def _two_steps(variant: bool):
     cfg = tiny_config(batch_size=B, parallel={"num_devices": 1})
+    if variant:
+        cfg["model"]["generator"].update(VARIANT_GENERATOR)
     patch = pytest.MonkeyPatch()
     patch.setattr(jax_cut_trainer, "train_augment", _eager_train_augment)
     try:
-        return _run_two_steps(cfg)
+        return _run_two_steps(cfg, variant)
     finally:
         patch.undo()
 
 
-def _run_two_steps(cfg):
+@pytest.fixture(scope="module")
+def two_steps():
+    return _two_steps(variant=False)
+
+
+@pytest.fixture(scope="module")
+def two_variant_steps():
+    return _two_steps(variant=True)
+
+
+def _variant_gains(g_params):
+    """At init every variant block is an identity: gamma and fc2 are 0, so q,
+    k, v and ``out`` get no gradient at all. Non-zero gains from a seed."""
+    rng = np.random.default_rng(17)
+    g = jax.tree_util.tree_map(np.array, g_params)
+    g["attn_0"]["gamma"] = np.float32(0.5)
+    for leaf in ("kernel", "bias"):
+        shape = g["channel_attn_1"]["fc2"][leaf].shape
+        g["channel_attn_1"]["fc2"][leaf] = 0.5 * rng.standard_normal(shape).astype(np.float32)
+    for i in range(2):
+        c = g[f"style_gate_{i}"]["gamma"].shape[0]
+        g[f"style_gate_{i}"]["gamma"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        g[f"style_gate_{i}"]["beta"] = rng.uniform(-0.5, 0.5, c).astype(np.float32)
+    return jax.tree_util.tree_map(jax.numpy.asarray, g)
+
+
+def _run_two_steps(cfg, variant=False):
+    from gan_variant_research_tpu.train.ema import ema_init
+
     jt = JaxCUTTrainer(cfg)
     jstate = jt.init_state()
     # With D's logits all inside the hinge margin, the gradient of its last
@@ -89,15 +125,20 @@ def _run_two_steps(cfg):
     d_params = jax.tree_util.tree_map(lambda a: a, jstate.d_params)
     d_params["scale_0"]["conv_out"]["bias"] = jax.numpy.ones((1,), jax.numpy.float32)
     jstate = jstate.replace(d_params=d_params)
+    if variant:
+        g_params = _variant_gains(jstate.g_params)
+        jstate = jstate.replace(g_params=g_params, ema=ema_init(g_params))
     pt = CUTTrainer(cfg)
-    pstate = pt.state_from_jax(_np_tree(jstate.g_params), _np_tree(jstate.d_params))
+    style = (2, 0.3, 0.8) if variant else None
+    pstate = pt.state_from_jax(_np_tree(jstate.g_params), _np_tree(jstate.d_params),
+                               device="cpu")
     rng = np.random.default_rng(7)
     out = []
     for step in range(2):
         photos = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
         monets = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
         draws = step_draws(jstate.base_key, step, B, S, pt.da_policy, jax.numpy.float32,
-                           pt.nce_tap_hw(), pt.num_patches)
+                           pt.nce_tap_hw(), pt.num_patches, style=style)
         jstate, jlosses = jt.train_step(jstate, photos, monets, step=step)
         pstate, plosses = pt.train_step(pstate, torch.from_numpy(photos),
                                         torch.from_numpy(monets), step=step, draws=draws)
@@ -109,7 +150,11 @@ def _run_two_steps(cfg):
 
 
 def _before_instance_norm(name: str) -> bool:
-    """G's conv biases that an instance norm follows: their gradient is 0."""
+    """G's biases with an analytic gradient of 0: the conv biases that an
+    instance norm follows, and the attention key's bias (a constant shift of
+    every key leaves the softmax unchanged)."""
+    if name.startswith(("attn_", "channel_attn_")):
+        return name.endswith("key.bias")
     return name.endswith("bias") and not name.startswith(("output_conv", "scale_"))
 
 
@@ -120,7 +165,16 @@ def _rel(got: torch.Tensor, want: np.ndarray) -> float:
 
 @pytest.mark.parametrize("step", [0, 1])
 def test_losses_match_jax(two_steps, step):
-    want, got, _, _ = two_steps[step]
+    _check_losses(two_steps, step)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_variant_losses_match_jax(two_variant_steps, step):
+    _check_losses(two_variant_steps, step)
+
+
+def _check_losses(run, step):
+    want, got, _, _ = run[step]
     assert set(got) == set(want) == set(LOSS_KEYS)
     for k in LOSS_KEYS:
         # float32 both sides; the sums of convs and reductions run in
@@ -137,7 +191,25 @@ def test_losses_match_jax(two_steps, step):
 def test_adam_moments_match_jax(two_steps, step, net):
     """After one step mu is 0.5 x the clipped gradient, so this holds the
     gradients of both nets themselves."""
-    _, _, jstate, pstate = two_steps[step]
+    _check_adam_moments(two_steps, step, net)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_variant_adam_moments_match_jax(two_variant_steps, step, net):
+    """The gradients of the attention, channel-attention and style-gate
+    leaves among them; ``attn_0.key.bias`` has an analytic gradient of 0 (a
+    constant key shift leaves the softmax unchanged) and is compared as
+    noise."""
+    _, _, _, pstate = two_variant_steps[step]
+    mu = pstate.opt_g.mu
+    assert float(mu["attn_0.query.weight"].abs().max()) > 0
+    assert float(mu["channel_attn_1.fc1.weight"].abs().max()) > 0
+    _check_adam_moments(two_variant_steps, step, net)
+
+
+def _check_adam_moments(run, step, net):
+    _, _, jstate, pstate = run[step]
     conv = generator_state_dict_from_jax if net == "g" else discriminator_state_dict_from_jax
     adam = _adam_state(getattr(jstate, f"opt_{net}"))
     ported = getattr(pstate, f"opt_{net}")
@@ -164,7 +236,17 @@ def test_params_match_jax(two_steps, step, which):
     and on the conv biases before an instance norm, whose gradient is
     analytically 0, Adam's step is noise of about lr on each side: 3 lr a
     step."""
-    _, _, jstate, pstate = two_steps[step]
+    _check_params(two_steps, step, which)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("which", ["g_params", "d_params", "ema"])
+def test_variant_params_match_jax(two_variant_steps, step, which):
+    _check_params(two_variant_steps, step, which)
+
+
+def _check_params(run, step, which):
+    _, _, jstate, pstate = run[step]
     net = "d" if which == "d_params" else "g"
     conv = generator_state_dict_from_jax if net == "g" else discriminator_state_dict_from_jax
     want = {k: v.numpy() for k, v in conv(getattr(jstate, which)).items()}

@@ -145,9 +145,56 @@ def test_cli_main_limit(ckpt, tmp_path):
     photos, out = tmp_path / "photos", tmp_path / "out"
     _write_tree(photos)
     gf.main(["--ckpt", str(ckpt["path"]), "--photos", str(photos), "--out", str(out),
-             "--size", "32", "--batch", "2", "--limit", "3", "--zip", str(tmp_path / "s.zip")])
+             "--size", "32", "--batch", "2", "--limit", "3", "--zip", str(tmp_path / "s.zip"),
+             "--device", "cpu"])
     assert len(list(out.rglob("*.jpg"))) == 3
     with zipfile.ZipFile(tmp_path / "s.zip") as zf:
         assert sorted(zf.namelist()) == ["0.jpg", "1.jpg", "2.jpg"]
     with pytest.raises(FileNotFoundError):
         gf.stylize_folder(None, tmp_path / "missing", out)
+
+
+def test_main_serves_on_the_card_unless_asked_for_the_cpu(ckpt, tmp_path, monkeypatch):
+    """No CUDA device and no ``--device cpu``: it raises, it does not serve
+    on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    photos = tmp_path / "photos"
+    _write_tree(photos)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        gf.main(["--ckpt", str(ckpt["path"]), "--photos", str(photos),
+                 "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+    assert gf.serving_device("cpu") == torch.device("cpu")
+
+
+VARIANT_CONFIG = {"model": {"generator": {
+    "ngf": 8, "n_blocks": 2, "use_attention": True, "attn_layers": [0],
+    "use_channel_attn": True, "channel_attn_layers": [1], "use_style_dropout": True}},
+    "runtime": {"precision": "fp32"}}
+
+
+def test_variant_checkpoint_serves_on_the_cpu(tmp_path):
+    """A variant checkpoint written as the JAX package writes it (non-zero
+    gains) serves with no style draws, as the JAX device step does."""
+    gcfg = VARIANT_CONFIG["model"]["generator"]
+    jax_gen = JaxGenerator(**{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in gcfg.items()})
+    p = jax.tree_util.tree_map(np.array, jax_gen.init(jax.random.PRNGKey(2),
+                                                      jnp.zeros((1, 32, 32, 3)))["params"])
+    rng = np.random.default_rng(3)
+    p["attn_0"]["gamma"] = np.float32(0.5)
+    p["channel_attn_1"]["fc2"]["kernel"] = rng.standard_normal(
+        p["channel_attn_1"]["fc2"]["kernel"].shape).astype(np.float32)
+    p["style_gate_0"]["beta"] = rng.uniform(-0.5, 0.5, 32).astype(np.float32)
+    path = save_checkpoint(tmp_path / "variant.msgpack", 5,
+                           {"generator": p, "ema_G": {"decay": 0.999, "shadow": p}},
+                           config=VARIANT_CONFIG)
+    gen, _ = gf.load_generator_params(path)
+    assert {"attn_0", "channel_attn_1", "style_gate_1"} <= {n for n, _ in gen.named_children()}
+    u8 = np.random.default_rng(4).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    x = jnp.asarray(u8, jnp.float32) / 255.0 * 2.0 - 1.0
+    want = np.asarray(jax_to_uint8(jax_gen.apply({"params": p}, x))).astype(int)
+    got = gf.stylize_batch(gen, torch.from_numpy(u8), 32).numpy().astype(int)
+    diff = np.abs(got - want)
+    # identical except 1 level where the float32 value sits at a rounding tie
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99

@@ -46,8 +46,9 @@ def test_port_imports_no_jax():
 
 TRAIN_SLICE_MODULES = (
     "core.config", "core.prng", "data.augment", "losses.adversarial", "losses.patchnce",
-    "losses.reconstruction", "models.discriminator_patchgan", "ops.diffaugment",
-    "train.cut_trainer", "train.ema", "train.optim")
+    "losses.reconstruction", "models.attention", "models.discriminator_patchgan",
+    "ops.diffaugment", "ops.kernels.spatial_attention", "train.cut_trainer", "train.ema",
+    "train.optim")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE_MODULES)
@@ -106,7 +107,8 @@ def test_console_script_resolves(pyproject):
 
 
 @pytest.mark.parametrize("kernel", ["reflect_conv3x3", "reflect_conv3x3_dx",
-                                    "reflect_conv3x3_dw"])
+                                    "reflect_conv3x3_dw", "spatial_attention",
+                                    "spatial_attention_dkv", "spatial_attention_dq"])
 def test_kernel_library_name_tracks_its_source(kernel):
     from gan_variant_research_tpu_torch.ops.kernels import _build
 

@@ -17,6 +17,7 @@ from gan_variant_research_tpu_torch.data.augment import AugmentDraws
 from gan_variant_research_tpu_torch.ops.diffaugment import DiffAugmentDraws, policy_ops
 
 STEP_KEY_NAMES = ("photo_aug", "monet_aug", "da_real", "da_fake", "da_g", "nce")
+STYLE_KEY_NAMES = ("style_fwd", "style_nce", "style_idt")
 
 
 def _t(a, dtype=None):
@@ -75,9 +76,26 @@ def nce_ids(key, tap_hw, num_patches):
             for i, hw in enumerate(tap_hw)]
 
 
-def step_draws(base_key, step, b, image_size, policy, fake_dtype, tap_hw, num_patches):
-    """Every draw of one JAX ``_train_step`` (float32 reals)."""
-    keys = step_keys(base_key, step, STEP_KEY_NAMES)
+def style_alphas(key, n_blocks, b, alpha_min=0.4, alpha_max=0.9):
+    """The style gates of one generator pass (generator_resnet.py:257-293,
+    attention.py:258-261): block i draws ``uniform(split(key, n_blocks)[i],
+    (b, 1, 1, 1))`` in float32. Returns (n_blocks, b)."""
+    keys = jax.random.split(key, n_blocks)
+    return torch.stack([_t(jax.random.uniform(keys[i], (b, 1, 1, 1), jnp.float32,
+                                              minval=alpha_min, maxval=alpha_max))
+                        for i in range(n_blocks)])
+
+
+def step_draws(base_key, step, b, image_size, policy, fake_dtype, tap_hw, num_patches,
+               style=None):
+    """Every draw of one JAX ``_train_step`` (float32 reals). ``style``
+    (n_blocks, alpha_min, alpha_max) with style dropout: the step then
+    splits its key over the nine names (cut_trainer.py:501-504), which
+    changes every stream, and draws the three passes' gate alphas."""
+    names = STEP_KEY_NAMES + (STYLE_KEY_NAMES if style is not None else ())
+    keys = step_keys(base_key, step, names)
+    alphas = {name: style_alphas(keys[name], style[0], b, *style[1:]) if style else None
+              for name in STYLE_KEY_NAMES}
     shape = (b, image_size, image_size, 3)
     da = lambda name, dtype: (diff_augment_draws(keys[name], shape, dtype, policy)
                               if policy is not None else None)
@@ -88,4 +106,5 @@ def step_draws(base_key, step, b, image_size, policy, fake_dtype, tap_hw, num_pa
         da_fake=da("da_fake", fake_dtype),
         da_g=da("da_g", fake_dtype),
         nce=nce_ids(keys["nce"], tap_hw, num_patches),
+        **alphas,
     )
