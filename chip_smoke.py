@@ -17,10 +17,12 @@ Phases, one line each:
               must be bitwise equal. The attention forward, dK/dV and dQ
               at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
               bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
-              and ragged shapes: float32 within 1e-5 (forward) and 1e-4
-              (gradients) of the largest value; bf16 at most twice as far
-              from the float32 plain version as the bf16 plain version is;
-              each backward kernel run twice bitwise equal;
+              ragged shapes, and the bf16 forward's tile edges (n of 4097
+              and 129, d_qk 8 and 64, d_v 8 and 136): float32 within 1e-5
+              (forward) and 1e-4 (gradients) of the largest value; bf16 at
+              most twice as far from the float32 plain version as the bf16
+              plain version is; each attention kernel run twice bitwise
+              equal (the forward's o and lse too);
 4. autograd - the gradients of one float32 trunk conv and of one float32
               attention core (4, 4096, 32, 256) through their
               autograd.Functions against autograd of the plain versions;
@@ -56,10 +58,12 @@ Phases, one line each:
               train step), bf16, against their plain versions and cuDNN's
               bf16 calls (CUDA events); the attention kernels at (12, 4096,
               32, 256) bf16 against their plain versions, and the forward and
-              forward + backward against scaled_dot_product_attention; a
-              served batch of 32 of each generator; ms per train step
+              forward + backward against scaled_dot_product_attention, and
+              the forward at the served shape (32, 4096, 32, 256) against
+              it too; a served batch of 32 of each generator; ms per train step
               (warmup and R1) of each on the kernel path and the plain path;
-              a torch.profiler op table of a warmup step of each.
+              a torch.profiler op table of a served batch and of a warmup
+              step of each, with the device's busy time and idle share.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON; the last line is
@@ -485,16 +489,16 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def profile_step(trainer, state, photos, monets, op: str, rows: int) -> None:
-    """One torch.profiler op table of a warmup step, its device busy time
-    and the card's idle share."""
+def profile_once(fn, op: str, rows: int, **fields) -> None:
+    """One torch.profiler op table of one call of ``fn`` (after a warm
+    call), its device busy time and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.train_step(state, photos, monets, step=1)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        trainer.train_step(state, photos, monets, step=1)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     busy = device_busy_ms(prof)
@@ -502,8 +506,8 @@ def profile_step(trainer, state, photos, monets, op: str, rows: int) -> None:
     sort_by = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
                else "self_cuda_time_total")
     print(events.table(sort_by=sort_by, row_limit=rows), flush=True)
-    phase("timing", op=op, kind="warmup", wall_ms=f"{wall:.2f}",
-          device_busy_ms=f"{busy:.2f}", idle_share=f"{max(0.0, 1 - busy / wall):.4f}")
+    phase("timing", op=op, **fields, wall_ms=f"{wall:.2f}", device_busy_ms=f"{busy:.2f}",
+          idle_share=f"{max(0.0, 1 - busy / wall):.4f}")
 
 
 def phase_timing(gen, rng, net, trainer, state, batches):
@@ -559,6 +563,8 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     phase("timing", op="stylize_batch", batch=TIME_BATCH, dtype="bf16",
           **{f"{k}_ms": f"{v:.3f}" for k, v in serve.items()},
           **{f"{k}_img_per_s": f"{TIME_BATCH / v * 1e3:.2f}" for k, v in serve.items()})
+    profile_once(lambda: stylize_batch(net, u8), "stylize_batch_profile", rows=12,
+                 batch=TIME_BATCH)
 
     photos, monets = batches[0]
     step_ms = {}
@@ -572,7 +578,8 @@ def phase_timing(gen, rng, net, trainer, state, batches):
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
 
-    profile_step(trainer, state, photos, monets, "train_step_profile", rows=40)
+    profile_once(lambda: trainer.train_step(state, photos, monets, step=1),
+                 "train_step_profile", rows=40, kind="warmup")
     return conv_ms, grad_ms
 
 
@@ -646,7 +653,12 @@ ATTN_CASES = [((12, 4096, 32, 256), torch.float32), (ATTN_SHAPE, torch.bfloat16)
               ((32, 4096, 32, 256), torch.bfloat16), ((2, 16384, 32, 256), torch.bfloat16),
               ((2, 1000, 16, 72), torch.float32), ((2, 1000, 16, 72), torch.bfloat16),
               ((1, 64, 8, 64), torch.float32), ((1, 64, 8, 64), torch.bfloat16),
-              ((3, 130, 64, 136), torch.bfloat16), ((1, 7, 24, 8), torch.float32)]
+              ((3, 130, 64, 136), torch.bfloat16), ((1, 7, 24, 8), torch.float32),
+              # the bf16 forward's tile edges: 128 query rows a block, 64 keys a
+              # tile, d_qk padded to 16/32/64, d_v to one 256-wide tile
+              ((2, 4097, 32, 256), torch.bfloat16), ((3, 129, 8, 256), torch.bfloat16),
+              ((2, 129, 64, 256), torch.bfloat16), ((2, 333, 32, 8), torch.bfloat16),
+              ((2, 777, 24, 136), torch.bfloat16)]
 
 
 def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
@@ -664,6 +676,7 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
         q, k, v, do = attention_inputs(shape, dtype, gen)
         label = dict(shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1])
         o, lse = sa.spatial_attention_forward(q, k, v)
+        o2, lse2 = sa.spatial_attention_forward(q, k, v)
         di = (o.float() * do.float()).sum(-1)
         dk, dv = sa.spatial_attention_dkv(q, k, v, do, lse, di)
         dk2, dv2 = sa.spatial_attention_dkv(q, k, v, do, lse, di)
@@ -702,15 +715,16 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
                     check(e_k <= 2 * e_p + 1e-6 * scale,
                           f"attention {kind} {name} {shape} bf16: {e_k} from float32, "
                           f"the plain version {e_p}")
-            if kind != "fwd":
-                again = {"dkv": (dk2, dv2), "dq": (dq2,)}[kind]
-                same = all(torch.equal(a, b) for a, b in zip(got[kind], again))
-                fields["bitwise_repeatable"] = same
-                check(same, f"attention {kind} {shape} {dtype}: two runs differ")
+            # each block owns its rows: every kernel run twice gives the same bits
+            first = {"fwd": (o, lse), "dkv": got["dkv"], "dq": got["dq"]}[kind]
+            again = {"fwd": (o2, lse2), "dkv": (dk2, dv2), "dq": (dq2,)}[kind]
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            fields["bitwise_repeatable"] = same
+            check(same, f"attention {kind} {shape} {dtype}: two runs differ")
             errs[(kind, shape, dtype)] = worst
             phase("kernel", name=f"spatial_attention_{kind}" if kind != "fwd"
                   else "spatial_attention", **label, **fields)
-        del q, k, v, do, o, lse, di, got, plain
+        del q, k, v, do, o, lse, o2, lse2, di, got, plain
         torch.cuda.empty_cache()
     return errs
 
@@ -1030,6 +1044,22 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 
+    # the forward at the served shape (a batch-32 variant serve), beside SDPA
+    served = (TIME_BATCH,) + shape[1:]
+    q, k, v, _ = attention_inputs(served, torch.bfloat16, gen)
+    s1 = event_ms(lambda: sdpa(q, k, v), iters=10)
+    k1 = event_ms(lambda: sa.spatial_attention_forward(q, k, v), iters=10)
+    k2 = event_ms(lambda: sa.spatial_attention_forward(q, k, v), iters=10)
+    s2 = event_ms(lambda: sdpa(q, k, v), iters=10)
+    fl = attention_flops(served)["fwd"]
+    bound, by = bound_ms(fl, attention_bytes(served, 2)["fwd"], PEAK_BF16_FLOPS)
+    phase("timing", op="spatial_attention_fwd_served", shape="x".join(map(str, served)),
+          dtype="bf16", kernel_ms=f"{k1:.4f}/{k2:.4f}", sdpa_ms=f"{s1:.4f}/{s2:.4f}",
+          bound_ms=f"{bound:.4f}", bound_by=by, kernel_tflops=f"{fl / (k1 + k2) * 2 / 1e9:.2f}",
+          sdpa_tflops=f"{fl / (s1 + s2) * 2 / 1e9:.2f}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
     u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
     serve = {"kernel": wall_ms(lambda: stylize_batch(net, u8), 3)}
     with plain_path(resblock, sa):
@@ -1037,6 +1067,8 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     phase("timing", op="stylize_batch_variant", batch=TIME_BATCH, dtype="bf16",
           **{f"{k}_ms": f"{v:.3f}" for k, v in serve.items()},
           **{f"{k}_img_per_s": f"{TIME_BATCH / v * 1e3:.2f}" for k, v in serve.items()})
+    profile_once(lambda: stylize_batch(net, u8), "stylize_batch_variant_profile", rows=12,
+                 batch=TIME_BATCH)
 
     photos, monets = batches[0]
     step_ms = {}
@@ -1048,7 +1080,8 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     phase("timing", op="train_step_variant", batch=photos.shape[0], dtype="bf16",
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
-    profile_step(trainer, state, photos, monets, "train_step_variant_profile", rows=30)
+    profile_once(lambda: trainer.train_step(state, photos, monets, step=1),
+                 "train_step_variant_profile", rows=30, kind="warmup")
     return {"times": times, "library": library}
 
 

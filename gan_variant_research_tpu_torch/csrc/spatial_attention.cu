@@ -23,17 +23,24 @@
 // 116 GFLOP, against 40 MB of inputs and output. Operation-bound on the
 // tensor cores (0.117 ms at 989 TFLOP/s), plus n^2 exponentials.
 //
-// What this design does about it. The (n, n) map never exists: block
-// (64 query rows, a d_v slice of DVT, one image) walks the keys in tiles
-// of 64, K and V tiles staged by cp.async two deep. bf16: 4 warps of 16
-// query rows; s on mma.sync m16n8k16 (ldmatrix fragments), its float32
-// accumulator rescaled online, p packed from the accumulator registers
-// straight into the A fragments of the p v product. The 64 x 256 float32
-// accumulator of a full d_v would not fit in registers, so d_v is split
-// over blocks (DVT = 128) and s is recomputed per slice: d_qk / d_v = 12.5%
-// more work. float32: FMA (never TF32) with s and p in shared memory.
-// wgmma, TMA and warp specialisation come later.
+// What this design does about it. The (n, n) map never exists. bf16: a
+// block owns 128 query rows of one image and all of d_v, so s is computed
+// once per key tile. Three warpgroups: a producer, which setmaxnreg drops
+// to 40 registers and whose one thread issues every load, and two
+// consumers of 64 query rows each, raised to 232 registers. The producer
+// fills a ring of four key tiles (64 keys of k and v each) by TMA over 3-D
+// tensor maps of (B, n, d): rows past n and columns past d are zero-filled
+// within their own image. Each stage has a full mbarrier (the TMA bytes)
+// and an empty one (the consumers' release). s = q k^T is one
+// wgmma.m64n64k16 per 16 columns of d_qk (q and k from shared memory, d_qk
+// padded to 16, 32 or 64 with zero columns, rows in the swizzle of their
+// width); o += bf16(p) v is wgmma.m64n256k16 with p packed from the s
+// accumulator straight into the A registers and v read from shared memory
+// as an MN-major operand in 64-column boxes with the 128-byte swizzle. The
+// 64 x 256 float32 accumulator is 128 registers a thread. float32: FMA
+// (never TF32) with s and p in shared memory.
 
+#include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,51 +51,166 @@ namespace {
 typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int BQ = 64;   // query rows per block
+constexpr int BQ = 64;   // query rows per block (float32)
 constexpr int BK = 64;   // keys per tile
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// ---------------------------------------------------------------------------
+// bf16 on wgmma. Shared memory holds q (128 rows), a ring of key tiles of k
+// and v, and the ring's mbarriers. q and k rows are 2 * DQK bytes (32, 64 or
+// 128) in the swizzle of that width (TMA writes it, the wgmma descriptors
+// name it: the 16-byte chunk bits of an address XOR the bits just above 128
+// bytes); v is four boxes of 64 columns, each BKW rows of 128 bytes in the
+// 128-byte swizzle. Every tile starts on a 1024-byte boundary.
+
+constexpr int BQW = 128;      // query rows per block: two consumer warpgroups of 64
+constexpr int BKW = 64;       // keys per tile
+constexpr int DVW = 256;      // value columns per block: all of d_v
+constexpr int STAGES = 4;
+constexpr int NT = 384;       // threads per block: producer + two consumers
+constexpr int CONSUMERS = 256;
+constexpr int V_BOX = BKW * 128;          // one 64-column box of a v tile
+constexpr int V_TILE = 4 * V_BOX;
+
+template <int DQK>
+struct Layout {
+  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQW * RB;                  // [STAGES][BKW][RB]
+  static constexpr int V = K + STAGES * BKW * RB;         // [STAGES][4][BKW][128]
+  static constexpr int BAR = V + STAGES * V_TILE;         // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
+};
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Until the phase of this parity has completed. (No trap on a long wait: one
+// trap block shared by the producer and the consumers makes their paths
+// meet, and ptxas then holds the consumers to the entry's 168 registers.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8; register i holds (row g, cols 2t, 2t+1) of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// The same, transposed: register i holds (rows 2t, 2t+1, col g) of matrix i.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// One box of a 3-D tensor map (coordinates innermost first) to shared
+// memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (64 x 64, float32) = or += a (64 x 16, shared) b^T (64 x 16, shared),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256, float32) += a (64 x 16, bf16 registers) b (16 x 256, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -96,156 +218,98 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on mma.sync. DQK: d_qk padded to 16, 32 or 64 (zero columns add
-// nothing to s); DVT: the d_v slice of a block. Shared memory rows are
-// padded by 8 elements so that ldmatrix's 8 rows hit distinct banks.
-
-template <int DQK, int DVT>
-__global__ void __launch_bounds__(128)
-attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-              int n, int dqk, int dv) {
-  constexpr int QS = DQK + 8;
-  constexpr int VS = DVT + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][QS]
-  bf16* ks = qs + BQ * QS;                         // [2][BK][QS]
-  bf16* vs = ks + 2 * BK * QS;                     // [2][BK][VS]
-
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const int c0 = blockIdx.y * DVT;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// One consumer warpgroup: its 64 query rows against all keys, the online
+// softmax and o. Key tile j is read from ring stage j % STAGES once its full
+// barrier completes, and released on its empty barrier when both products
+// have read it. Accumulator layout (wgmma's): warp w of the group holds rows
+// 16w + g and 16w + g + 8 (g = lane / 4), register 4c + e column 8c + 2t +
+// (e & 1) (t = lane % 4) of row g + 8 (e >> 1).
+template <int DQK>
+__device__ __forceinline__ void consume_rows(uint32_t base, uint32_t q_rows, uint32_t full,
+                                             uint32_t empty, int n, bf16* __restrict__ o_img,
+                                             float* __restrict__ lse_img, int row0, int dv) {
+  using L = Layout<DQK>;
+  const int lane = threadIdx.x % 32;
+  const int wl = (threadIdx.x / 32) % 4;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const bf16* qb = q + (size_t)b * n * dqk;
-  const bf16* kb = k + (size_t)b * n * dqk;
-  const bf16* vb = v + (size_t)b * n * dv;
 
-  for (int i = tid; i < BQ * (DQK / 8); i += 128) {
-    const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-    const bool ok = q0 + r < n && c < dqk;
-    cp_async16(&qs[r * QS + c], ok ? qb + (size_t)(q0 + r) * dqk + c : qb, ok);
-  }
-  auto stage = [&](int j, int buf) {
-    const int k0 = j * BK;
-    for (int i = tid; i < BK * (DQK / 8); i += 128) {
-      const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-      const bool ok = k0 + r < n && c < dqk;
-      cp_async16(&ks[(buf * BK + r) * QS + c], ok ? kb + (size_t)(k0 + r) * dqk + c : kb, ok);
-    }
-    for (int i = tid; i < BK * (DVT / 8); i += 128) {
-      const int r = i / (DVT / 8), c = (i % (DVT / 8)) * 8;
-      const bool ok = k0 + r < n && c0 + c < dv;
-      cp_async16(&vs[(buf * BK + r) * VS + c], ok ? vb + (size_t)(k0 + r) * dv + c0 + c : vb, ok);
-    }
-  };
-
-  const int nk = (n + BK - 1) / BK;
-  stage(0, 0);
-  cp_async_commit();
-
-  // rows g and g + 8 of this warp's 16: running max (log2 units) and this
-  // thread's share of the running sum
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-  float acc[DVT / 8][4];
+  float m_r[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+  float l_r[2] = {0.f, 0.f};               // this thread's share of the running sum
+  float acc[128];
 #pragma unroll
-  for (int j = 0; j < DVT / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[DQK / 16][4];
-  const int lrow = (lane % 8) + ((lane / 8) % 2) * 8;   // A / trans-B row of this lane
-  const int lcol = (lane / 16) * 8;                     // its column offset
-  const int brow = (lane % 8) + (lane / 16) * 8;        // non-trans B row (n)
-  const int bcol = ((lane / 8) % 2) * 8;                // its column offset (k)
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
+  const int nk = (n + BKW - 1) / BKW;
   for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) stage(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk)
-        ldsm_x4(qf[kk], &qs[(warp * 16 + lrow) * QS + kk * 16 + lcol]);
-    }
-    const bf16* kt = ks + buf * BK * QS;
-    const bf16* vt = vs + buf * BK * VS;
+    const int stage = j % STAGES;
+    mbar_wait(full + 8 * stage, (j / STAGES) & 1);
+    const uint32_t k_tile = base + L::K + stage * BKW * L::RB;
+    const uint32_t v_tile = base + L::V + stage * V_TILE;
 
-    // s = q k^T: 16 rows x 64 keys a warp
-    float s[BK / 8][4];
+    // s = q k^T: 64 rows x 64 keys
+    float s[32];
 #pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[jt][e] = 0.f;
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DQK / 16; ++kk)
+      wgmma_ss_n64(s, make_desc(q_rows + kk * 32, 16, 8 * L::RB, L::MODE),
+                   make_desc(k_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+    wgmma_commit();
+    wgmma_wait_all();
 #pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, &kt[(jp * 16 + brow) * QS + kk * 16 + bcol]);
-        mma_bf16(s[2 * jp], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], r[2], r[3]);
-      }
+    for (int i = 0; i < 32; ++i) reg_fence(s[i]);
 
     // online softmax in log2 units; keys past n weigh nothing
-    const int k0 = j * BK;
+    const int k0 = j * BKW;
+    if (k0 + BKW > n) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + jt * 8 + 2 * t + (e & 1) < n;
-        s[jt][e] = ok ? s[jt][e] * LOG2E : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[jt][e]);
-      }
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_r[h], mx[h]);   // finite: every tile has a key
-      alpha[h] = exp2f(m_r[h] - m_new);
+      const float m_new = fmaxf(m_r[h], mx[h] * LOG2E);   // finite: every tile has a key
+      alpha[h] = fast_exp2(m_r[h] - m_new);
       m_r[h] = m_new;
       l_r[h] *= alpha[h];
     }
 #pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[jt][e] = exp2f(s[jt][e] - m_r[e >> 1]);
-        l_r[e >> 1] += s[jt][e];
-      }
-#pragma unroll
-    for (int jt = 0; jt < DVT / 8; ++jt) {
-      acc[jt][0] *= alpha[0];
-      acc[jt][1] *= alpha[0];
-      acc[jt][2] *= alpha[1];
-      acc[jt][3] *= alpha[1];
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      s[i] = fast_exp2(fmaf(s[i], LOG2E, -m_r[h]));
+      l_r[h] += s[i];
     }
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // acc += bf16(p) v: p's accumulator registers are the A fragments
+    // acc += bf16(p) v: the s accumulator registers are the A fragments
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jp = 0; jp < DVT / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &vt[(kk * 16 + lrow) * VS + jp * 16 + lcol]);
-        mma_bf16(acc[2 * jp], a, r[0], r[1]);
-        mma_bf16(acc[2 * jp + 1], a, r[2], r[3]);
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    __syncthreads();   // this buffer is refilled next iteration
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n256(acc, pa[kk], make_desc(v_tile + kk * 2048, V_BOX, 1024, 1));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    mbar_arrive(empty + 8 * stage);
   }
 
 #pragma unroll
@@ -256,16 +320,68 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
+    const int row = row0 + wl * 16 + g + 8 * h;
     if (row >= n) continue;
-    bf16* orow = o + ((size_t)b * n + row) * dv + c0;
+    bf16* orow = o_img + (size_t)row * dv;
 #pragma unroll
-    for (int jt = 0; jt < DVT / 8; ++jt) {
-      if (c0 + jt * 8 < dv)
-        *reinterpret_cast<__nv_bfloat162*>(orow + jt * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[jt][2 * h] * inv[h], acc[jt][2 * h + 1] * inv[h]);
+    for (int c = 0; c < DVW / 8; ++c) {
+      if (c * 8 < dv)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * h] * inv[h], acc[4 * c + 2 * h + 1] * inv[h]);
     }
-    if (blockIdx.y == 0 && t == 0) lse[(size_t)b * n + row] = (m_r[h] + log2f(l_r[h])) * LN2;
+    if (t == 0) lse_img[row] = (m_r[h] + log2f(l_r[h])) * LN2;
+  }
+}
+
+// q, k and v come in through tensor maps over (B, n, d): boxes of (DQK,
+// 128, 1) for q, (DQK, 64, 1) for k and (64, 64, 1) for v.
+template <int DQK>
+__global__ void __launch_bounds__(NT, 1)
+attn_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+              float* __restrict__ lse, int n, int dv) {
+  using L = Layout<DQK>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES, q_full = empty + 8 * STAGES;
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQW;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The two roles' paths must never meet again (not even in a shared trap
+  // block), or setmaxnreg no longer sets the consumers' register budget.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: stage j waits until the consumers have released tile j - STAGES
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, BQW * L::RB);
+      tma_load(base + L::Q, &tq, 0, q0, b, q_full);
+      const int boxes = (dv + 63) / 64;   // v boxes wholly past d_v are not loaded
+      for (int j = 0; j < (n + BKW - 1) / BKW; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, BKW * L::RB + boxes * V_BOX);
+        tma_load(base + L::K + s * BKW * L::RB, &tk, 0, j * BKW, b, full + 8 * s);
+        for (int c = 0; c < boxes; ++c)
+          tma_load(base + L::V + s * V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    mbar_wait(q_full, 0);
+    consume_rows<DQK>(base, base + L::Q + cw * 64 * L::RB, full, empty, n,
+                      o + (size_t)b * n * dv, lse + (size_t)b * n, q0 + cw * 64, dv);
   }
 }
 
@@ -415,25 +531,65 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     lse[(size_t)b * n + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <int DQK, int DVT>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int n, int dqk, int dv, cudaStream_t st) {
-  const int smem = (BQ * (DQK + 8) + 2 * BK * (DQK + 8) + 2 * BK * (DVT + 8)) * 2;
-  auto kernel = attn_fwd_bf16<DQK, DVT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BQ - 1) / BQ, (dv + DVT - 1) / DVT, B);
-  kernel<<<grid, 128, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                  static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n,
-                                  dqk, dv);
-  return static_cast<int>(cudaGetLastError());
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links no libcuda; null if the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 (B, n, d) tensor in boxes of (box_d,
+// box_rows, 1); what lies past n or d reads as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int n, int d, int box_d,
+                int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};   // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)box_d, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DQK>
-int launch_bf16_dv(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int n, int dqk, int dv, cudaStream_t st) {
-  return dv <= 64 ? launch_bf16<DQK, 64>(q, k, v, o, lse, B, n, dqk, dv, st)
-                  : launch_bf16<DQK, 128>(q, k, v, o, lse, B, n, dqk, dv, st);
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int n, int dqk, int dv, cudaStream_t st) {
+  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, n, dqk, DQK, BQW, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, DQK, BKW, swz_qk) ||
+      !tensor_map(&tv, v, B, n, dv, 64, BKW, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Layout<DQK>::BYTES;
+  auto kernel = attn_fwd_bf16<DQK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + BQW - 1) / BQW, B);
+  kernel<<<grid, NT, smem, st>>>(tq, tk, tv, static_cast<bf16*>(o), lse, n, dv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -451,9 +607,9 @@ extern "C" int spatial_attention_forward(const void* q, const void* k, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
   if (dtype == 1) {
-    if (dqk <= 16) return launch_bf16_dv<16>(q, k, v, o, l, B, n, dqk, dv, st);
-    if (dqk <= 32) return launch_bf16_dv<32>(q, k, v, o, l, B, n, dqk, dv, st);
-    return launch_bf16_dv<64>(q, k, v, o, l, B, n, dqk, dv, st);
+    if (dqk <= 16) return launch_bf16<16>(q, k, v, o, l, B, n, dqk, dv, st);
+    if (dqk <= 32) return launch_bf16<32>(q, k, v, o, l, B, n, dqk, dv, st);
+    return launch_bf16<64>(q, k, v, o, l, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BQ * (dqk + 1) + 2 * BK * PS + 3 * BQ) * 4;

@@ -2,11 +2,14 @@
 subpackage installs, the CUDA sources ship, and its console script
 resolves."""
 
+import ctypes
 import importlib
 import json
+import re
 import subprocess
 import sys
 import tomllib
+import types
 from pathlib import Path
 
 import pytest
@@ -106,9 +109,11 @@ def test_console_script_resolves(pyproject):
     assert callable(getattr(importlib.import_module(mod_name), attr))
 
 
-@pytest.mark.parametrize("kernel", ["reflect_conv3x3", "reflect_conv3x3_dx",
-                                    "reflect_conv3x3_dw", "spatial_attention",
-                                    "spatial_attention_dkv", "spatial_attention_dq"])
+KERNELS = ["reflect_conv3x3", "reflect_conv3x3_dx", "reflect_conv3x3_dw", "spatial_attention",
+           "spatial_attention_dkv", "spatial_attention_dq"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_kernel_library_name_tracks_its_source(kernel):
     from gan_variant_research_tpu_torch.ops.kernels import _build
 
@@ -117,3 +122,64 @@ def test_kernel_library_name_tracks_its_source(kernel):
     assert lib.parent == REPO_ROOT / "build" / "torch_kernels"
     assert lib.name.startswith(f"lib{kernel}-") and lib.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def _c_parameters(source: str) -> tuple[str, list[str]]:
+    """The exported function of a kernel source: its name and, for each
+    parameter in order, "ptr" or "int"."""
+    found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)
+    assert len(found) == 1, f"expected one extern \"C\" int function, found {len(found)}"
+    name, params = found[0]
+    kinds = []
+    for p in (" ".join(p.split()) for p in params.split(",")):
+        if "*" in p:
+            kinds.append("ptr")
+        elif re.fullmatch(r"(const )?int \w+", p):
+            kinds.append("int")
+        else:
+            raise AssertionError(f"{name}: parameter {p!r} is neither a pointer nor an int")
+    return name, kinds
+
+
+def _wrapper_argtypes(monkeypatch) -> dict:
+    """What every loader of the kernel wrappers asks of ``load_library``:
+    library name -> (symbol, ctypes argtypes, restype), without building."""
+    from gan_variant_research_tpu_torch.ops.kernels import _build, resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention
+
+    asked = {}
+
+    class Library:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, symbol):
+            fn = types.SimpleNamespace()
+            asked[self.name] = (symbol, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "load_library", Library)
+    for module in (resblock, spatial_attention):
+        for attr in dir(module):
+            loader = getattr(module, attr)
+            if attr.endswith("_fn") and hasattr(loader, "__wrapped__"):
+                loader.__wrapped__()   # the uncached loader: the real ctypes setup
+    return {name: (symbol, fn.argtypes, fn.restype) for name, (symbol, fn) in asked.items()}
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
+    """The ctypes argtypes a wrapper sets must match its kernel's C
+    parameters in count and order (pointers as c_void_p, ints as c_int, the
+    stream last): a mismatch corrupts memory on the card, where no CPU test
+    runs the kernel."""
+    assert sorted(p.stem for p in (REPO_ROOT / PKG / "csrc").glob("*.cu")) == sorted(KERNELS)
+    name, kinds = _c_parameters((REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text())
+    loaded = _wrapper_argtypes(monkeypatch)
+    assert sorted(loaded) == sorted(KERNELS)
+    symbol, argtypes, restype = loaded[kernel]
+    assert symbol == name
+    assert restype is ctypes.c_int
+    as_kinds = [{ctypes.c_void_p: "ptr", ctypes.c_int: "int"}[t] for t in argtypes]
+    assert as_kinds == kinds
+    assert kinds[-1] == "ptr"   # the stream
