@@ -9,12 +9,16 @@ Phases, one line each:
 1. device   - requires CUDA (there is no CPU fallback); prints the card's
               name and power limit as nvidia-smi gives them;
 2. build    - builds the six hand-written kernels from csrc/ (nvcc,
-              sm_90a), all at once;
+              sm_90a), all at once, with ptxas's spills and wgmma
+              serialisation for each;
 3. kernels  - each kernel against its plain PyTorch version on the card
               (TF32 off): the trunk conv, its input grad (dx) and its
               weight grad (dw), at the trunk shapes in float32 and bf16
-              and at ragged shapes down to H, W of 2 and 3; dw run twice
-              must be bitwise equal. The attention forward, dK/dV and dQ
+              (dx also at the 512^2 trunk's (2, 128, 128, 256)) and at
+              ragged shapes down to H, W of 2 and 3, every dx route
+              (float32 FMA, bf16 wgmma, channels that are not multiples of
+              8 zero-padded to them) named on its line; dw and bf16
+              dx run twice must be bitwise equal. The attention forward, dK/dV and dQ
               at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
               bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
               ragged shapes, and the bf16 forward's tile edges (n of 4097
@@ -42,13 +46,15 @@ Phases, one line each:
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
               must launch 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
-              trunk convs, each with its backward); losses finite; G, D and
+              trunk convs, each with its backward), every dx on the bf16
+              wgmma route; losses finite; G, D and
               EMA moved. Then one float32 step at batch 2 through the kernels
               and through the plain versions, from one state and one set of
               draws: losses agree to 1e-4, Adam's mu per leaf to 1e-3 of the
               leaf's max. train_variant: 4 variant steps (VARIANT_CUT), each
               launching 54/54/54 trunk and 6/6/6 attention kernels (fwd, dK/dV,
-              dQ: 2 blocks x 3 G passes); losses finite; the attention,
+              dQ: 2 blocks x 3 G passes), every dx on the wgmma route;
+              losses finite; the attention,
               channel-attention and style-gate parameters and their EMA
               moved. Float32 at batch 2: the variant step amplifies any
               rounding in the attention core, so the kernel path is held to
@@ -56,9 +62,11 @@ Phases, one line each:
               (see phase_train_variant);
 7. timing   - trunk conv at batch 32 (serving) and dx, dw at batch 12 (the
               train step), bf16, against their plain versions and cuDNN's
-              bf16 calls (CUDA events); the attention kernels at (12, 4096,
-              32, 256) bf16 against their plain versions, and the forward and
-              forward + backward against scaled_dot_product_attention, and
+              bf16 calls (CUDA events), and dx's three kernels (frame, main,
+              fold) apart on the profiler's device clock; the attention
+              kernels at (12, 4096, 32, 256) bf16 against their plain
+              versions, and the forward, the backward alone and forward +
+              backward against scaled_dot_product_attention, and
               the forward at the served shape (32, 4096, 32, 256) against
               it too; a served batch of 32 of each generator; ms per train step
               (warmup and R1) of each on the kernel path and the plain path;
@@ -76,6 +84,7 @@ import concurrent.futures
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -248,6 +257,14 @@ def counts(resblock) -> tuple[int, int, int]:
 
 def reset_counts(resblock) -> None:
     resblock.LAUNCHES = resblock.DX_LAUNCHES = resblock.DW_LAUNCHES = 0
+    resblock.DX_ROUTE_LAUNCHES = dict.fromkeys(resblock.DX_ROUTES, 0)
+
+
+def check_dx_routes(resblock, before: dict, want: int, what: str) -> None:
+    """Every dx launched since ``before`` took the bf16 wgmma route."""
+    got = {k: v - before[k] for k, v in resblock.DX_ROUTE_LAUNCHES.items()}
+    check(got == dict(dict.fromkeys(resblock.DX_ROUTES, 0), bf16_wgmma=want),
+          f"{what}: dx launches by route {got}, want {want} on bf16_wgmma")
 
 
 def before_instance_norm(name: str) -> bool:
@@ -273,7 +290,13 @@ def phase_build() -> None:
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in builds.items()}
         for name, fut in futures.items():
-            phase("build", kernel=name, seconds=f"{fut.result():.2f}",
+            seconds = fut.result()
+            # ptxas's report: spilled bytes over all entries, and whether it
+            # serialised any wgmma (warnings C7510-C7515)
+            log = _build.library_path(name).with_suffix(".log").read_text()
+            spills = sum(map(int, re.findall(r"(\d+) bytes spill stores", log)))
+            phase("build", kernel=name, seconds=f"{seconds:.2f}", spill_store_bytes=spills,
+                  wgmma_serialized="C751" in log,
                   library=_build.library_path(name).relative_to(REPO))
 
 
@@ -305,17 +328,29 @@ def phase_kernels(gen) -> dict:
               differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad)
         check(bad == 0, f"reflect_conv3x3 {shape} {dtype}: {bad} values over tolerance")
 
+    # dx routes: float32 FMA; bf16 wgmma (the trunks of train_gan_cutpp.yaml
+    # and _512.yaml, Cin past one 256-wide block, Cout past 64-wide K-stages,
+    # channels padded to 8 (Cin 130, Cout 21), ragged planes, H, W of 2 and 3)
     grad_cases = [(TRAIN_SHAPE, 256, torch.float32), (TRAIN_SHAPE, 256, torch.bfloat16),
+                  ((2, 128, 128, 256), 256, torch.float32),
+                  ((2, 128, 128, 256), 256, torch.bfloat16),
                   ((3, 17, 33, 130), 70, torch.float32), ((3, 17, 33, 130), 70, torch.bfloat16),
+                  ((3, 17, 33, 136), 72, torch.bfloat16), ((2, 9, 9, 264), 512, torch.bfloat16),
                   ((2, 2, 3, 13), 21, torch.float32), ((2, 2, 3, 13), 21, torch.bfloat16),
-                  ((1, 3, 2, 8), 8, torch.float32), ((1, 3, 2, 8), 8, torch.bfloat16)]
+                  ((1, 3, 2, 8), 8, torch.float32), ((1, 3, 2, 8), 8, torch.bfloat16),
+                  ((2, 2, 2, 16), 24, torch.bfloat16)]
     for shape, c_out, dtype in grad_cases:
         x, w, _ = conv_inputs(shape, c_out, dtype, gen)
         dy = torch.randn(shape[:3] + (c_out,), device="cuda", generator=gen).to(dtype)
+        route = resblock.dx_route(dy.shape, shape[3], dtype)
         label = dict(shape="x".join(map(str, shape)), c_out=c_out, dtype=str(dtype).split(".")[-1])
 
+        before = dict(resblock.DX_ROUTE_LAUNCHES)
         dx = resblock.reflect_conv3x3_dx(dy, w)
+        dx2 = resblock.reflect_conv3x3_dx(dy, w)
         torch.cuda.synchronize()
+        check(resblock.DX_ROUTE_LAUNCHES[route] - before[route] == 2,
+              f"dx {shape} {dtype}: not launched on {route}")
         r = resblock.reflect_conv3x3_dx_reference(dy, w)
         check(dx.dtype == dtype and dx.shape == x.shape, f"dx {shape} {dtype}: bad output")
         d = (dx.float() - r.float()).abs()
@@ -326,9 +361,12 @@ def phase_kernels(gen) -> dict:
             tol = tol + bf16_ulp(r)
         bad = int((d > tol).sum())
         errs[("dx", shape, dtype)] = float(d.max())
-        phase("kernel", name="reflect_conv3x3_dx", **label, max_abs_err=f"{d.max().item():.3e}",
-              differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad)
+        phase("kernel", name="reflect_conv3x3_dx", route=route, **label,
+              max_abs_err=f"{d.max().item():.3e}",
+              differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad,
+              bitwise_repeatable=bool(torch.equal(dx, dx2)))
         check(bad == 0, f"reflect_conv3x3_dx {shape} {dtype}: {bad} values over tolerance")
+        check(torch.equal(dx, dx2), f"reflect_conv3x3_dx {shape} {dtype}: two runs differ")
 
         dw = resblock.reflect_conv3x3_dw(x, dy)
         dw2 = resblock.reflect_conv3x3_dw(x, dy)
@@ -435,15 +473,16 @@ def phase_train(rng, g_tree, d_tree):
     reset_counts(resblock)
     r1_values = []
     for photos, monets in batches:
-        before = counts(resblock)
+        before, routes = counts(resblock), dict(resblock.DX_ROUTE_LAUNCHES)
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
+        check_dx_routes(resblock, routes, 3 * TRUNK_CONVS, "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
         r1_values.append(vals["r1"])
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
-              launches_fwd_dx_dw="/".join(map(str, step_counts)),
+              launches_fwd_dx_dw="/".join(map(str, step_counts)), dx_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
         check(step_counts == want, f"step launched {step_counts} (fwd, dx, dw), want {want}")
@@ -487,6 +526,28 @@ def device_busy_ms(prof) -> float:
             busy += b - end
             end = b
     return busy / 1e3
+
+
+def kernel_device_us(fn, iters: int, names: dict) -> dict:
+    """Mean device time in us of each CUDA kernel whose name contains
+    ``names[k]``, over ``iters`` calls of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    got = {}
+    for e in prof.key_averages():
+        for k, name in names.items():
+            if name in e.key:
+                total = (e.device_time_total if hasattr(e, "device_time_total")
+                         else e.cuda_time_total)
+                got[k] = total / iters
+    check(set(got) == set(names), f"profiler saw {sorted(got)} of {sorted(names)}")
+    return got
 
 
 def profile_once(fn, op: str, rows: int, **fields) -> None:
@@ -552,6 +613,13 @@ def phase_timing(gen, rng, net, trainer, state, batches):
         phase("timing", op=f"reflect_conv3x3_{op}", shape="x".join(map(str, TRAIN_SHAPE)),
               dtype="bf16", kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
               cudnn_bf16_ms=f"{lib:.4f}", kernel_tflops=f"{flop / grad_ms[op][0] / 1e9:.2f}")
+    # dx's kernels apart (its route for the trunk: frame pass, wgmma main pass, fold)
+    parts = kernel_device_us(lambda: resblock.reflect_conv3x3_dx(dy, w), 10,
+                             {"frame": "dx_frame_mma", "main": "dx_main_wgmma", "fold": "dx_fold"})
+    phase("timing", op="reflect_conv3x3_dx_parts", shape="x".join(map(str, TRAIN_SHAPE)),
+          dtype="bf16", route=resblock.dx_route(dy.shape, w.shape[2], dy.dtype),
+          **{f"{k}_us": f"{v:.2f}" for k, v in parts.items()},
+          main_tflops=f"{flop / parts['main'] / 1e6:.2f}")
 
     u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
 
@@ -857,10 +925,11 @@ def phase_train_variant(rng, g_tree, d_tree):
     reset_counts(resblock)
     reset_attn_counts(sa)
     for photos, monets in batches:
-        before = (*counts(resblock), *attn_counts(sa))
+        before, routes = (*counts(resblock), *attn_counts(sa)), dict(resblock.DX_ROUTE_LAUNCHES)
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
+        check_dx_routes(resblock, routes, 3 * TRUNK_CONVS, "variant step")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
@@ -1028,6 +1097,12 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
 
     library = {"fwd": event_ms(lambda: sdpa(q, k, v), iters=10),
                "fwd_bwd": event_ms(lambda: fwd_bwd(sdpa), iters=10)}
+    # SDPA's backward alone (dQ, dK and dV in one call), on a retained graph
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_lib = sdpa(*leaves)
+    library["bwd"] = event_ms(lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True),
+                              iters=10)
+    del leaves, o_lib
     pair = {"kernel": event_ms(lambda: fwd_bwd(sa.spatial_attention), iters=10),
             "plain": event_ms(lambda: fwd_bwd(sa.spatial_attention_reference), iters=3)}
     b, n, dqk, dv = shape
@@ -1037,6 +1112,8 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     phase("timing", op="spatial_attention_fwd_bwd", shape="x".join(map(str, shape)), dtype="bf16",
           **{f"{k}_ms": f"{v:.4f}" for k, v in pair.items()},
           sdpa_fwd_ms=f"{library['fwd']:.4f}", sdpa_fwd_bwd_ms=f"{library['fwd_bwd']:.4f}",
+          sdpa_bwd_ms=f"{library['bwd']:.4f}",
+          kernel_dkv_plus_dq_ms=f"{times['dkv'][0] + times['dq'][0]:.4f}",
           kernel_fwd_tflops=f"{flops['fwd'] / times['fwd'][0] / 1e9:.2f}",
           kernel_fwd_bwd_tflops=f"{least / pair['kernel'] / 1e9:.2f}",
           sdpa_fwd_tflops=f"{flops['fwd'] / library['fwd'] / 1e9:.2f}",
@@ -1138,17 +1215,20 @@ def main() -> int:
     attn_bounds = {k: bound_ms(attention_flops(ATTN_SHAPE)[k], attention_bytes(ATTN_SHAPE, 2)[k],
                                PEAK_BF16_FLOPS) for k in ("fwd", "dkv", "dq")}
 
-    def row(name, replaces, launches, err, ms, plain_ms, bound, library_ms):
+    def row(name, replaces, launches, err, ms, plain_ms, bound, library_ms, covers=None):
+        # library_covers: the rows whose work library_ms does, all in one call
+        # (SDPA's backward computes dK, dV and dQ: compare it with the pair)
         return {"name": name, "route": "cuda",
                 "source": f"gan_variant_research_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, "library_covers": covers or [name]}
 
     resblock_py = "gan_variant_research_tpu/ops/pallas/resblock.py:{}"
     flash_py = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
                 "(gan_variant_research_tpu/models/attention.py:129)")
     times = attn["times"]
+    attn_bwd = ["spatial_attention_dkv", "spatial_attention_dq"]
     print(json.dumps({"kernels": [
         row("reflect_conv3x3", resblock_py.format(156), train_launches[0],
             errs[("fwd", CONV_SHAPE, bf16)], conv_ms["kernel"], conv_ms["plain"],
@@ -1164,10 +1244,10 @@ def main() -> int:
             attn_bounds["fwd"], attn["library"]["fwd"]),
         row("spatial_attention_dkv", flash_py.format(1121), attn_launches[1],
             errs[("dkv", ATTN_SHAPE, bf16)], times["dkv"][0], times["dkv"][1],
-            attn_bounds["dkv"], None),
+            attn_bounds["dkv"], attn["library"]["bwd"], attn_bwd),
         row("spatial_attention_dq", flash_py.format(1456), attn_launches[2],
             errs[("dq", ATTN_SHAPE, bf16)], times["dq"][0], times["dq"][1],
-            attn_bounds["dq"], None),
+            attn_bounds["dq"], attn["library"]["bwd"], attn_bwd),
     ], "serve_launches": serve_launches}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -121,7 +121,10 @@ def stylize_folder(generator: torch.nn.Module, photos_dir: str | Path,
                    zip_path: str | None = None) -> list[Path]:
     """Stylize every image under ``photos_dir`` into the mirrored tree under
     ``out_dir`` as JPEGs; returns the written paths in input order. The
-    next batch decodes on host threads while the device runs this one."""
+    next batch decodes on host threads while the device runs this one, and
+    a batch's JPEGs encode while the device runs the next. A failed write
+    (a full disk, an unwritable ``out_dir``) raises once the batch after it
+    has run, and no further batch is decoded or run."""
     # imported here: stylize_batch alone must not need PIL
     from PIL import Image
 
@@ -164,23 +167,30 @@ def stylize_folder(generator: torch.nn.Module, photos_dir: str | Path,
         return dst
 
     chunks = [paths[i:i + batch] for i in range(0, len(paths), batch)]
-    write_futures = []
+    written: list[Path] = []
     with ThreadPoolExecutor(max_workers=4) as decode_pool, \
             ThreadPoolExecutor(max_workers=4) as write_pool:
         def decode(chunk):
             return [decode_pool.submit(load_img, p) for p in chunk]
 
-        pending = decode(chunks[0])
-        for ci, chunk in enumerate(chunks):
-            arr = np.stack([f.result() for f in pending])
-            if ci + 1 < len(chunks):
-                pending = decode(chunks[ci + 1])
-            out = stylize_batch(generator, torch.from_numpy(arr), size).cpu().numpy()
-            write_futures += [write_pool.submit(save_img, output_path(p), img)
-                              for p, img in zip(chunk, out)]
-            print(f"\r{min((ci + 1) * batch, len(paths))}/{len(paths)} images",
-                  end="", flush=True)
-        written = [f.result() for f in write_futures]
+        pending, writing = decode(chunks[0]), []
+        try:
+            for ci, chunk in enumerate(chunks):
+                arr = np.stack([f.result() for f in pending])
+                if ci + 1 < len(chunks):
+                    pending = decode(chunks[ci + 1])
+                out = stylize_batch(generator, torch.from_numpy(arr), size).cpu().numpy()
+                # the last batch's writes had this batch's device step to finish;
+                # a failure among them raises here, before the next batch
+                written += [f.result() for f in writing]
+                writing = [write_pool.submit(save_img, output_path(p), img)
+                           for p, img in zip(chunk, out)]
+                print(f"\r{min((ci + 1) * batch, len(paths))}/{len(paths)} images",
+                      end="", flush=True)
+            written += [f.result() for f in writing]
+        finally:
+            for f in pending:
+                f.cancel()
     print()
 
     if zip_path:

@@ -75,20 +75,21 @@ def sample_augment(gen: torch.Generator, batch: int) -> AugmentDraws:
 def sample_diff_augment(gen: torch.Generator, batch: int, size: int, policy,
                         dtype: torch.dtype) -> DiffAugmentDraws:
     """Draws for ``diff_augment`` of a (batch, size, size, C) tensor of
-    ``dtype``; the colour uniforms are drawn in ``dtype``."""
-    d = DiffAugmentDraws()
-    for op in policy_ops(policy):
+    ``dtype``, one per op in policy order; the colour uniforms are drawn in
+    ``dtype``."""
+    ops = policy_ops(policy)
+    values = []
+    for op in ops:
         if op in ("brightness", "saturation", "contrast"):
-            setattr(d, op, _uniform(gen, batch, 0.0, 1.0, dtype))
+            values.append((_uniform(gen, batch, 0.0, 1.0, dtype),))
         elif op == "translation":
             s = translation_max_shift(size)
-            d.shift_h = _randint(gen, batch, -s, s + 1)
-            d.shift_w = _randint(gen, batch, -s, s + 1)
+            values.append((_randint(gen, batch, -s, s + 1), _randint(gen, batch, -s, s + 1)))
         else:
             c = cutout_size(size, CUTOUT_RATIOS[op])
-            d.cut_h = _randint(gen, batch, 0, size + (1 - c % 2))
-            d.cut_w = _randint(gen, batch, 0, size + (1 - c % 2))
-    return d
+            values.append((_randint(gen, batch, 0, size + (1 - c % 2)),
+                           _randint(gen, batch, 0, size + (1 - c % 2))))
+    return DiffAugmentDraws(ops, tuple(values))
 
 
 def sample_step(gen: torch.Generator, batch: int, image_size: int, policy,

@@ -35,19 +35,16 @@ def policy_ops(policy) -> tuple[str, ...]:
 
 @dataclasses.dataclass
 class DiffAugmentDraws:
-    """Per-sample draws of one ``diff_augment`` call, each (B,): uniforms
-    ``brightness``, ``saturation``, ``contrast`` in [0, 1) in x's dtype;
-    integer ``shift_h``, ``shift_w`` in [-s, s] for translation; integer
-    ``cut_h``, ``cut_w`` cutout centres. Fields an op list does not use
-    stay ``None``."""
+    """The draws of one ``diff_augment`` call: one entry per op of the
+    policy's flat op list (``policy_ops``), in order, as the JAX chain gives
+    every op its own key, so an op that repeats draws anew. ``ops`` names
+    the ops; ``values[k]`` holds op k's per-sample tensors, each (B,): the
+    uniform in [0, 1) in x's dtype for brightness, saturation and contrast;
+    integer ``(shift_h, shift_w)`` in [-s, s] for translation; integer
+    ``(cut_h, cut_w)`` centres for cutout and cutout_light."""
 
-    brightness: torch.Tensor | None = None
-    saturation: torch.Tensor | None = None
-    contrast: torch.Tensor | None = None
-    shift_h: torch.Tensor | None = None
-    shift_w: torch.Tensor | None = None
-    cut_h: torch.Tensor | None = None
-    cut_w: torch.Tensor | None = None
+    ops: tuple[str, ...] = ()
+    values: tuple[tuple[torch.Tensor, ...], ...] = ()
 
 
 def translation_max_shift(size: int, ratio: float = TRANSLATION_RATIO) -> int:
@@ -104,16 +101,19 @@ def rand_cutout(x: torch.Tensor, cut_h: torch.Tensor, cut_w: torch.Tensor,
 
 
 def diff_augment(x: torch.Tensor, policy, draws: DiffAugmentDraws) -> torch.Tensor:
-    """Apply the policy's ops in order with the given draws."""
-    for op in policy_ops(policy):
+    """Apply the policy's ops in order, each with its own draws."""
+    ops = policy_ops(policy)
+    if tuple(draws.ops) != ops:
+        raise ValueError(f"draws are for ops {draws.ops}, the policy has {ops}")
+    for op, v in zip(ops, draws.values):
         if op == "brightness":
-            x = rand_brightness(x, draws.brightness)
+            x = rand_brightness(x, *v)
         elif op == "saturation":
-            x = rand_saturation(x, draws.saturation)
+            x = rand_saturation(x, *v)
         elif op == "contrast":
-            x = rand_contrast(x, draws.contrast)
+            x = rand_contrast(x, *v)
         elif op == "translation":
-            x = rand_translation(x, draws.shift_h, draws.shift_w)
+            x = rand_translation(x, *v)
         else:
-            x = rand_cutout(x, draws.cut_h, draws.cut_w, CUTOUT_RATIOS[op])
+            x = rand_cutout(x, *v, CUTOUT_RATIOS[op])
     return x

@@ -10,7 +10,8 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
   ``reflect_conv3x3_reference`` on a CPU tensor; its backward is
   ``reflect_conv3x3_dx`` and ``reflect_conv3x3_dw``.
 - ``reflect_conv3x3_dx(dy, w)``: the input gradient, ``csrc/
-  reflect_conv3x3_dx.cu`` on CUDA, ``reflect_conv3x3_dx_reference`` on CPU.
+  reflect_conv3x3_dx.cu`` on CUDA (one of the routes ``DX_ROUTES``, picked
+  by ``dx_route``), ``reflect_conv3x3_dx_reference`` on CPU.
 - ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
   reflect_conv3x3_dw.cu`` on CUDA, ``reflect_conv3x3_dw_reference`` on CPU.
 - ``fused_resblock``: conv -> instance norm -> ReLU -> conv -> instance norm
@@ -18,7 +19,8 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
 versions serve CPU tensors. ``LAUNCHES``, ``DX_LAUNCHES`` and
-``DW_LAUNCHES`` count the kernel launches.
+``DW_LAUNCHES`` count the kernel launches, ``DX_ROUTE_LAUNCHES`` the ``dx``
+launches by route.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
 LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
+
+# The dx kernel's routes, in the order of its ``route`` argument: float32 on
+# FMA, bf16 on wgmma + TMA.
+DX_ROUTES = ("f32_fma", "bf16_wgmma")
+DX_ROUTE_LAUNCHES = dict.fromkeys(DX_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Z_MAX = 65535
@@ -193,11 +200,39 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     return y
 
 
+def dx_route(dy_shape, c_in: int, dtype: torch.dtype) -> str:
+    """The route of ``csrc/reflect_conv3x3_dx.cu`` for a cotangent of
+    ``dy_shape`` (N, H, W, Cout) and ``dtype`` with ``c_in`` input channels:
+    float32 on FMA, bf16 on wgmma + TMA (channel counts that are not
+    multiples of 8 are zero-padded to them, ``pad_dx_channels``)."""
+    if dtype == torch.float32:
+        return "f32_fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"dy must be float32 or bfloat16, got {dtype}")
+    return "bf16_wgmma"
+
+
+def pad_dx_channels(dy: torch.Tensor, w: torch.Tensor):
+    """dy (N, H, W, Cout) and w (3, 3, Cin, Cout) zero-padded so that Cin and
+    Cout are multiples of 8, as the wgmma route's tensor maps need (16-byte
+    rows); unpadded tensors come back as they are. The zeros add nothing to
+    the float32 sums, so the first Cin channels of the padded input gradient
+    are the input gradient."""
+    c_in, c_out = w.shape[2], w.shape[3]
+    p_in, p_out = -c_in % 8, -c_out % 8
+    if p_out:
+        dy = F.pad(dy, (0, p_out))
+    if p_in or p_out:
+        w = F.pad(w, (0, p_out, 0, p_in))
+    return dy, w
+
+
 def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of ``reflect_conv3x3`` for the cotangent ``dy``
     (N, H, W, Cout) and the HWIO kernel ``w``; returns (N, H, W, Cin) in
     dy's dtype. On CUDA it launches ``csrc/reflect_conv3x3_dx.cu`` on the
-    current stream; on the CPU it is ``reflect_conv3x3_dx_reference``."""
+    current stream, on the route ``dx_route`` picks; on the CPU it is
+    ``reflect_conv3x3_dx_reference``."""
     global DX_LAUNCHES
     _check_dx(dy, w)
     if dy.device.type == "cpu":
@@ -205,18 +240,30 @@ def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_cuda(dy)
     n, h, width, c_out = dy.shape
     c_in = w.shape[2]
-    wf = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()   # (3, 3, Cout, Cin)
-    frame = torch.empty((n, 2 * (width + 2) + 2 * h, c_in), dtype=torch.float32,
-                        device=dy.device)
-    dx = torch.empty((n, h, width, c_in), dtype=dy.dtype, device=dy.device)
+    route = dx_route(dy.shape, c_in, dy.dtype)
+    if route == "bf16_wgmma":
+        # (3, 3, Cin, Cout), channels of 8; the tensor maps need 16-byte
+        # aligned bases
+        dy, wk = pad_dx_channels(dy, w.to(dy.dtype))
+        dy, wk = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (dy, wk.contiguous()))
+        c_in_k, c_out = wk.shape[2], wk.shape[3]
+    else:
+        wk = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()      # (3, 3, Cout, Cin)
+        c_in_k = c_in
+    # float32 scratch: the padded frame of the input gradient, then (wgmma
+    # route) the interior sums of the pixels the fold reaches
+    rows = 2 * (width + 2) + 2 * h + (2 * width + 2 * h if route == "bf16_wgmma" else 0)
+    frame = torch.empty((n, rows, c_in_k), dtype=torch.float32, device=dy.device)
+    dx = torch.empty((n, h, width, c_in_k), dtype=dy.dtype, device=dy.device)
     fn = _dx_fn()
     with torch.cuda.device(dy.device):
-        err = fn(dy.data_ptr(), wf.data_ptr(), frame.data_ptr(), dx.data_ptr(),
-                 n, h, width, c_in, c_out, _DTYPE_CODES[dy.dtype],
+        err = fn(dy.data_ptr(), wk.data_ptr(), frame.data_ptr(), dx.data_ptr(),
+                 n, h, width, c_in_k, c_out, DX_ROUTES.index(route),
                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "reflect_conv3x3_dx")
+    _raise_on(err, f"reflect_conv3x3_dx ({route})")
     DX_LAUNCHES += 1
-    return dx
+    DX_ROUTE_LAUNCHES[route] += 1
+    return dx if c_in_k == c_in else dx[..., :c_in].contiguous()
 
 
 def dw_splits(x_shape, c_out: int, sm_count: int) -> int:

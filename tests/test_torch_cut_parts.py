@@ -42,7 +42,7 @@ from gan_variant_research_tpu_torch.losses import adversarial, reconstruction
 from gan_variant_research_tpu_torch.losses.patchnce import patch_nce_loss
 from gan_variant_research_tpu_torch.models.discriminator_patchgan import MultiscaleDiscriminator
 from gan_variant_research_tpu_torch.models.generator_resnet import ResNetGenerator
-from gan_variant_research_tpu_torch.ops.diffaugment import diff_augment
+from gan_variant_research_tpu_torch.ops.diffaugment import diff_augment, policy_ops
 from gan_variant_research_tpu_torch.ops.nn_ops import avg_pool_3x3_s2
 from gan_variant_research_tpu_torch.train import ema, optim
 from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer, build_discriminator
@@ -208,6 +208,36 @@ def test_diff_augment_matches_jax(policy):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
+def _of(draws, op):
+    """The draws of every occurrence of ``op`` in a ``DiffAugmentDraws``."""
+    return [v for o, v in zip(draws.ops, draws.values) if o == op]
+
+
+def test_diff_augment_draws_once_per_op_like_jax():
+    """A policy that repeats an op and names both cutouts: the JAX chain
+    splits its key over every op, so each occurrence draws anew and each
+    cutout keeps its own centre range; the port carries one draw per op."""
+    policy = ("color", "color", "translation", "cutout", "cutout_light")
+    x = np.random.default_rng(13).uniform(-1, 1, (4, 20, 20, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(14)
+    want = _np(jax_da.diff_augment(key, jnp.asarray(x), policy))
+    draws = diff_augment_draws(key, x.shape, jnp.float32, policy)
+    assert len(_of(draws, "brightness")) == 2 and len(_of(draws, "cutout_light")) == 1
+    assert not torch.equal(*(v[0] for v in _of(draws, "brightness")))
+    got = diff_augment(torch.from_numpy(x), policy, draws)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    # the port's sampler: one draw per op, the light cutout in its own range
+    d = prng.sample_diff_augment(torch.Generator().manual_seed(0), 64, 24, policy,
+                                 torch.float32)
+    assert d.ops == policy_ops(policy)
+    assert not torch.equal(_of(d, "saturation")[0][0], _of(d, "saturation")[1][0])
+    # centres in [0, 24 + (1 - c % 2)): c = 12 for cutout, 5 for cutout_light
+    assert int(_of(d, "cutout")[0][0].max()) <= 24
+    assert int(_of(d, "cutout_light")[0][0].max()) <= 23
+    with pytest.raises(ValueError):
+        diff_augment(torch.from_numpy(x), policy[:3], draws)
+
+
 def test_diff_augment_bf16_draws_and_arithmetic():
     """A bf16 fake gets bf16 draws and bf16 arithmetic on both sides; the
     channel and image means round in another order: 2 bf16 ulps."""
@@ -217,7 +247,7 @@ def test_diff_augment_bf16_draws_and_arithmetic():
     policy = ("color", "translation", "cutout")
     want = _np(jax_da.diff_augment(key, x16, policy))
     draws = diff_augment_draws(key, x.shape, jnp.bfloat16, policy)
-    assert draws.brightness.dtype == torch.bfloat16
+    assert _of(draws, "brightness")[0][0].dtype == torch.bfloat16
     got = diff_augment(torch.from_numpy(np.array(_np(x16))).bfloat16(), policy, draws)
     assert got.dtype == torch.bfloat16
     ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
@@ -231,10 +261,12 @@ def test_sampler_draws_have_the_jax_shapes_ranges_and_dtypes():
     a = d.photo_aug
     assert ((a.scales >= 0.85) & (a.scales < 1.0)).all() and a.flip.dtype == torch.bool
     assert ((a.hue >= -0.02) & (a.hue <= 0.02)).all()
-    assert d.da_real.brightness.dtype == torch.float32
-    assert d.da_fake.brightness.dtype == d.da_g.saturation.dtype == torch.bfloat16
-    assert (d.da_fake.shift_h.abs() <= 4).all()                     # int(32 * 0.125 + 0.5)
-    assert ((d.da_g.cut_h >= 0) & (d.da_g.cut_h < 33)).all()        # 32 + (1 - 16 % 2)
+    assert _of(d.da_real, "brightness")[0][0].dtype == torch.float32
+    assert (_of(d.da_fake, "brightness")[0][0].dtype == _of(d.da_g, "saturation")[0][0].dtype
+            == torch.bfloat16)
+    assert (_of(d.da_fake, "translation")[0][0].abs() <= 4).all()     # int(32 * 0.125 + 0.5)
+    cut_h = _of(d.da_g, "cutout")[0][0]
+    assert ((cut_h >= 0) & (cut_h < 33)).all()                      # 32 + (1 - 16 % 2)
     assert [len(i) for i in d.nce] == [16, 16] and int(d.nce[1].max()) < 64
     assert prng.sample_step(gen, 4, 32, None, torch.float32, torch.float32, [], 16).da_g is None
 

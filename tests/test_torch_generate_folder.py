@@ -154,6 +154,23 @@ def test_cli_main_limit(ckpt, tmp_path):
         gf.stylize_folder(None, tmp_path / "missing", out)
 
 
+def test_failed_write_stops_the_run_early(ckpt, tmp_path, monkeypatch):
+    """An unwritable --out (under a regular file: as root, chmod does not stop
+    a write) raises from the first batch's writes once the second batch has
+    run, instead of after every batch is decoded and run."""
+    photos = tmp_path / "photos"
+    _write_tree(photos)                       # 5 images: 5 batches of 1
+    blocker = tmp_path / "a_file"
+    blocker.write_text("not a directory")
+    calls = []
+    real = gf.stylize_batch
+    monkeypatch.setattr(gf, "stylize_batch", lambda *a: calls.append(1) or real(*a))
+    gen, _ = gf.load_generator_params(ckpt["path"])
+    with pytest.raises(OSError):
+        gf.stylize_folder(gen, photos, blocker / "out", size=32, batch=1)
+    assert 0 < len(calls) < 5
+
+
 def test_main_serves_on_the_card_unless_asked_for_the_cpu(ckpt, tmp_path, monkeypatch):
     """No CUDA device and no ``--device cpu``: it raises, it does not serve
     on the CPU."""

@@ -183,3 +183,27 @@ def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
     as_kinds = [{ctypes.c_void_p: "ptr", ctypes.c_int: "int"}[t] for t in argtypes]
     assert as_kinds == kinds
     assert kinds[-1] == "ptr"   # the stream
+    if kernel == "reflect_conv3x3_dx":
+        # the last int is the route, an index into resblock.DX_ROUTES
+        source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
+        assert re.search(r"int Cout, int route,\s*void\* stream\)", source)
+        # and the C entry launches the wgmma route at that route's index
+        from gan_variant_research_tpu_torch.ops.kernels import resblock
+
+        assert re.search(rf"route == {resblock.DX_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
+                         source)
+
+
+def test_dx_probe_variants_apply_to_the_kernel_source():
+    """scripts/probe_torch_dx.py builds its variants of the dx kernel by text
+    edits of csrc/reflect_conv3x3_dx.cu: each edit must still find its text,
+    so that an edit of the kernel that breaks the probe shows here."""
+    spec = importlib.util.spec_from_file_location("probe_torch_dx",
+                                                  REPO_ROOT / "scripts" / "probe_torch_dx.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    source = (REPO_ROOT / PKG / "csrc" / "reflect_conv3x3_dx.cu").read_text()
+    assert probe.variant_source(source, "base") == source
+    for variant in [*probe.EDITS, *probe.DEFAULT]:
+        edited = probe.variant_source(source, variant)
+        assert variant == "base" or edited != source

@@ -176,11 +176,11 @@ def test_cpu_gradients_build_and_launch_nothing():
     x, w, b, dy = map(torch.from_numpy, _inputs((1, 4, 4, 8), 8))
     x.requires_grad_()
     w.requires_grad_()
-    before = (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES)
+    before = (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES, dict(rb.DX_ROUTE_LAUNCHES))
     torch.autograd.grad(rb.reflect_conv3x3(x, w, b), (x, w), dy)
     rb.reflect_conv3x3_dx(dy, w.detach())
     rb.reflect_conv3x3_dw(x.detach(), dy)
-    assert (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES) == before
+    assert (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES, rb.DX_ROUTE_LAUNCHES) == before
     for fn in (rb._forward_fn, rb._dx_fn, rb._dw_fn):
         assert fn.cache_info().currsize == 0
 
@@ -208,3 +208,135 @@ def test_gradient_wrappers_reject_what_the_kernels_do_not_take(bad):
 ])
 def test_dw_split_count(shape, c_out, sms, want):
     assert rb.dw_splits(shape, c_out, sms) == want
+
+
+@pytest.mark.parametrize("shape,c_in,dtype,route", [
+    ((12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # train_gan_cutpp.yaml's trunk
+    ((4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp_512.yaml's
+    ((1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),            # any plane, channels of 8
+    ((3, 17, 33, 70), 130, torch.bfloat16, "bf16_wgmma"),       # Cin padded to 136
+    ((2, 2, 3, 21), 16, torch.bfloat16, "bf16_wgmma"),          # Cout padded to 24
+    ((12, 64, 64, 256), 256, torch.float32, "f32_fma"),
+])
+def test_dx_route(shape, c_in, dtype, route):
+    assert rb.dx_route(shape, c_in, dtype) == route
+    assert route in rb.DX_ROUTES
+
+
+@pytest.mark.parametrize("shape,c_out", [((3, 5, 6, 130), 70), ((2, 2, 3, 13), 21),
+                                         ((1, 3, 2, 16), 24)])
+def test_ragged_bf16_channels_pad_onto_the_wgmma_route(shape, c_out):
+    """Channel counts that are not multiples of 8 are zero-padded to them for
+    the wgmma route, and the first Cin channels of the padded input gradient
+    (the route's split, emulated) are the input gradient; channels of 8 are
+    passed through as they are."""
+    _, w, _, dy = _inputs(shape, c_out, seed=11)
+    dy_t, w_t = torch.from_numpy(dy), torch.from_numpy(w)
+    dy_p, w_p = rb.pad_dx_channels(dy_t, w_t)
+    c_in = shape[3]
+    assert dy_p.shape == shape[:3] + (-(-c_out // 8) * 8,)
+    assert w_p.shape == (3, 3, -(-c_in // 8) * 8, -(-c_out // 8) * 8)
+    if c_in % 8 == 0 and c_out % 8 == 0:
+        assert dy_p is dy_t and w_p is w_t
+    assert torch.equal(dy_p[..., :c_out], dy_t) and not dy_p[..., c_out:].any()
+    assert torch.equal(w_p[:, :, :c_in, :c_out], w_t)
+    assert not w_p[:, :, c_in:].any() and not w_p[..., c_out:].any()
+    got, _ = _wgmma_route_split(dy_p, w_p)
+    assert _rel(got[..., :c_in].numpy(), rb.reflect_conv3x3_dx_reference(dy_t, w_t).numpy()) <= 1e-5
+
+
+def test_dx_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        rb.dx_route((1, 4, 4, 8), 8, torch.float16)
+
+
+def _fold_slot(h, w, i, j):
+    """csrc/reflect_conv3x3_dx.cu::fold_slot: where the wgmma route keeps the
+    float32 interior sum of a pixel the fold reaches, -1 for the others."""
+    if i == 1:
+        return j
+    if i == h - 2:
+        return w + j
+    if j == 1:
+        return 2 * w + i
+    if j == w - 2:
+        return 2 * w + h + i
+    return -1
+
+
+def _slot_pixel(h, w, slot):
+    """dx_fold's pixel of a slot (checked against _fold_slot, as it does)."""
+    if slot < 2 * w:
+        return (1 if slot < w else h - 2), slot % w
+    return (slot - 2 * w) % h, (1 if slot < 2 * w + h else w - 2)
+
+
+def _wgmma_route_split(dy, w):
+    """The bf16 wgmma route of csrc/reflect_conv3x3_dx.cu written out in plain
+    torch, in float32: the frame pass's four lines (1-D correlations of one
+    dy line with one kernel row or column), the main pass's zero-padded 9-tap
+    interior (the "same" conv of dy with the flipped kernel), its epilogue
+    that sets aside the interior sums of the pixels the fold reaches, and
+    dx_fold, which adds the frame to them as frame_fold does."""
+    n, h, width, _ = dy.shape
+    dyf, wf = dy.float(), w.float()
+
+    def line(d, taps, off, length):   # d (N, L, Cout); taps: 3 (Cin, Cout) matrices
+        dp = F.pad(d, (0, 0, 2, 2))
+        return torch.stack([sum(dp[:, u + off - k + 2] @ taps[k].T for k in range(3))
+                            for u in range(length)], dim=1)
+
+    top = line(dyf[:, 0], [wf[0, k] for k in range(3)], 0, width + 2)
+    bot = line(dyf[:, h - 1], [wf[2, k] for k in range(3)], 0, width + 2)
+    left = line(dyf[:, :, 0], [wf[k, 0] for k in range(3)], 1, h)
+    right = line(dyf[:, :, width - 1], [wf[k, 2] for k in range(3)], 1, h)
+
+    def frame_fold(i, j):
+        v = torch.zeros_like(top[:, 0])
+        if j == 1:
+            v = v + left[:, i]
+        if j == width - 2:
+            v = v + right[:, i]
+        for row, at in ((top, 1), (bot, h - 2)):
+            if i == at:
+                v = v + row[:, j + 1] + (row[:, 0] if j == 1 else 0) + (
+                    row[:, width + 1] if j == width - 2 else 0)
+        return v
+
+    interior = F.conv2d(dyf.permute(0, 3, 1, 2), wf.flip(0, 1).permute(2, 3, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+    dx = interior.clone()
+    edge = {}
+    for i in range(h):
+        for j in range(width):
+            if _fold_slot(h, width, i, j) >= 0:
+                edge[_fold_slot(h, width, i, j)] = interior[:, i, j]
+    folded = []
+    for slot in range(2 * width + 2 * h):
+        i, j = _slot_pixel(h, width, slot)
+        if _fold_slot(h, width, i, j) == slot:
+            dx[:, i, j] = edge.pop(slot) + frame_fold(i, j)
+            folded.append((i, j))
+    assert not edge
+    return dx.to(dy.dtype), folded
+
+
+@pytest.mark.parametrize("shape,c_out", [((2, 2, 2, 8), 8), ((1, 2, 3, 8), 16),
+                                         ((1, 3, 2, 8), 8), ((2, 3, 3, 16), 8),
+                                         ((1, 5, 4, 8), 8), ((2, 6, 7, 16), 24),
+                                         ((1, 16, 16, 16), 16)])
+def test_wgmma_route_split_matches_reference_and_xla(shape, c_out):
+    """The frame lines, the interior and the fold slots of the wgmma route
+    give the reference's input gradient, at H and W of 2 and 3 too (where
+    fold targets coincide), and each pixel the fold reaches is finished
+    exactly once."""
+    _, w, _, dy = _inputs(shape, c_out, seed=7)
+    dy_t, w_t = torch.from_numpy(dy), torch.from_numpy(w)
+    got, folded = _wgmma_route_split(dy_t, w_t)
+    _, h, width, _ = shape
+    targets = {(i, j) for i in range(h) for j in range(width)
+               if i in (1, h - 2) or j in (1, width - 2)}
+    assert sorted(folded) == sorted(targets)
+    # float32 sums and fold in another order
+    assert _rel(got.numpy(), rb.reflect_conv3x3_dx_reference(dy_t, w_t).numpy()) <= 1e-5
+    assert _rel(got.numpy(), jax_rb._xla_data_grad(jnp.asarray(dy), jnp.asarray(w))) <= 1e-4

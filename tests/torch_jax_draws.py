@@ -47,27 +47,28 @@ def augment_draws(key, b, scale_range=(0.85, 1.0), jitter=(0.05, 0.05, 0.05, 0.0
 
 def diff_augment_draws(key, shape, dtype, policy):
     """``diff_augment`` of a ``shape`` tensor of JAX ``dtype``: one key per
-    op; translation and cutout split theirs for the two axes."""
+    op, in policy order; translation and cutout split theirs for the two
+    axes."""
     b, h, w, _ = shape
     ops = policy_ops(policy)
     keys = jax.random.split(key, len(ops))
     torch_dtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
-    d = DiffAugmentDraws()
+    values = []
     for k, op in zip(keys, ops):
         if op in ("brightness", "saturation", "contrast"):
-            setattr(d, op, _t(jax.random.uniform(k, (b, 1, 1, 1), dtype=dtype), torch_dtype))
+            values.append((_t(jax.random.uniform(k, (b, 1, 1, 1), dtype=dtype), torch_dtype),))
         elif op == "translation":
             sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
             kx, ky = jax.random.split(k)
-            d.shift_h = _t(jax.random.randint(kx, (b,), -sh, sh + 1))
-            d.shift_w = _t(jax.random.randint(ky, (b,), -sw, sw + 1))
+            values.append((_t(jax.random.randint(kx, (b,), -sh, sh + 1)),
+                           _t(jax.random.randint(ky, (b,), -sw, sw + 1))))
         else:
             ratio = 0.5 if op == "cutout" else 0.2
             ch, cw = int(h * ratio + 0.5), int(w * ratio + 0.5)
             kx, ky = jax.random.split(k)
-            d.cut_h = _t(jax.random.randint(kx, (b, 1, 1), 0, h + (1 - ch % 2)))
-            d.cut_w = _t(jax.random.randint(ky, (b, 1, 1), 0, w + (1 - cw % 2)))
-    return d
+            values.append((_t(jax.random.randint(kx, (b, 1, 1), 0, h + (1 - ch % 2))),
+                           _t(jax.random.randint(ky, (b, 1, 1), 0, w + (1 - cw % 2)))))
+    return DiffAugmentDraws(ops, tuple(values))
 
 
 def nce_ids(key, tap_hw, num_patches):
