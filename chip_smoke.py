@@ -21,12 +21,23 @@ Phases, one line each:
               dx run twice must be bitwise equal. The attention forward, dK/dV and dQ
               at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
               bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
-              ragged shapes, and the bf16 forward's tile edges (n of 4097
-              and 129, d_qk 8 and 64, d_v 8 and 136): float32 within 1e-5
-              (forward) and 1e-4 (gradients) of the largest value; bf16 at
-              most twice as far from the float32 plain version as the bf16
-              plain version is; each attention kernel run twice bitwise
-              equal (the forward's o and lse too);
+              ragged shapes, the bf16 forward's tile edges (n of 4097
+              and 129, d_qk 8 and 64, d_v 8 and 136) and dK/dV's (n of
+              127, 128, 129 and 4097 at B = 1, d_qk 8, 24 and 64, d_v 8,
+              72 and 136): float32 within 1e-5 (forward) and 1e-4
+              (gradients) of the largest value; the bf16 forward at most
+              twice as far from the float32 plain version as the bf16
+              plain version is; bf16 dK/dV and dQ within one bf16 rounding
+              of the largest value of the contract version (the library's
+              rounding points, float64 sums) and, by RMS, at most twice as
+              far from the float32 plain version as the bf16 plain version
+              is; each attention kernel run twice bitwise equal (the
+              forward's o and lse too). tolerance: the bf16 dK/dV and dQ
+              over 8 input seeds at (2, 16384, 32, 256) and (12, 4096, 32,
+              256), each output's error (max and RMS) against a float64
+              core and against the contract version, for the kernel, the
+              plain version and the contract version with float32 sums,
+              and the same check on every seed;
 4. autograd - the gradients of one float32 trunk conv and of one float32
               attention core (4, 4096, 32, 256) through their
               autograd.Functions against autograd of the plain versions;
@@ -292,11 +303,12 @@ def phase_build() -> None:
         for name, fut in futures.items():
             seconds = fut.result()
             # ptxas's report: spilled bytes over all entries, and whether it
-            # serialised any wgmma (warnings C7510-C7515)
+            # serialised any wgmma (warnings C7510-C7515; C7517 and C7519 only
+            # note a wait or fence it added)
             log = _build.library_path(name).with_suffix(".log").read_text()
             spills = sum(map(int, re.findall(r"(\d+) bytes spill stores", log)))
             phase("build", kernel=name, seconds=f"{seconds:.2f}", spill_store_bytes=spills,
-                  wgmma_serialized="C751" in log,
+                  wgmma_serialized=bool(re.search(r"\(C751[0-5]\)", log)),
                   library=_build.library_path(name).relative_to(REPO))
 
 
@@ -726,19 +738,27 @@ ATTN_CASES = [((12, 4096, 32, 256), torch.float32), (ATTN_SHAPE, torch.bfloat16)
               # tile, d_qk padded to 16/32/64, d_v to one 256-wide tile
               ((2, 4097, 32, 256), torch.bfloat16), ((3, 129, 8, 256), torch.bfloat16),
               ((2, 129, 64, 256), torch.bfloat16), ((2, 333, 32, 8), torch.bfloat16),
-              ((2, 777, 24, 136), torch.bfloat16)]
+              ((2, 777, 24, 136), torch.bfloat16),
+              # the bf16 dK/dV's tile edges: 128 keys a block, 64 queries a tile
+              # (32 at d_qk 64), v and do in 64-column boxes; one image
+              ((1, 127, 24, 72), torch.bfloat16), ((1, 128, 64, 8), torch.bfloat16),
+              ((1, 129, 8, 136), torch.bfloat16), ((1, 4097, 64, 256), torch.bfloat16),
+              ((1, 4097, 24, 72), torch.bfloat16)]
 
 
 def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
     """Each attention kernel against its plain version. float32: within
     1e-5 (forward) and 1e-4 (gradients) of the largest value. bf16: the
     kernel and the plain version round at other places (the unnormalised p
-    and ds here, the normalised weights and dp there), so each is held
-    against the float32 plain version on the same bf16 inputs, and the
-    kernel may be at most twice as far from it as the plain version is. The
-    backward kernels run twice must agree bitwise."""
+    here, the normalised weights there; in the backward ds here, dp there),
+    so the forward is held against the float32 plain version on the same
+    bf16 inputs, and may be at most twice as far from it as the plain
+    version is; dK/dV and dQ are held to the contract version, which rounds
+    where they do (``bf16_backward_check``). Every kernel run twice must
+    agree bitwise."""
     from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
 
+    contract = attention_backwards(sa)["contract"]
     errs = {}
     for shape, dtype in cases:
         q, k, v, do = attention_inputs(shape, dtype, gen)
@@ -762,6 +782,8 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
             truth = {"fwd": (sa.spatial_attention_reference(*f32[:3]),),
                      "dkv": sa.spatial_attention_dkv_reference(*f32, lse, di),
                      "dq": (sa.spatial_attention_dq_reference(*f32, lse, di),)}
+            dq_c, dk_c, dv_c = per_image(contract, q, k, v, do, lse, di)
+            contracts = {"dkv": (dk_c, dv_c), "dq": (dq_c,)}
         for kind in got:
             worst, fields = 0.0, {}
             names = {"fwd": ("o",), "dkv": ("dk", "dv"), "dq": ("dq",)}[kind]
@@ -774,7 +796,7 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
                     tol = (1e-5 if kind == "fwd" else 1e-4) * scale
                     fields[f"{name}_rel_to_max"] = f"{d / scale:.3e}"
                     check(d <= tol, f"attention {kind} {name} {shape} fp32: {d} over {tol}")
-                else:
+                elif kind == "fwd":
                     t = truth[kind][j]
                     e_k = float((a.float() - t).abs().max())
                     e_p = float((p_.float() - t).abs().max())
@@ -783,6 +805,11 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
                     check(e_k <= 2 * e_p + 1e-6 * scale,
                           f"attention {kind} {name} {shape} bf16: {e_k} from float32, "
                           f"the plain version {e_p}")
+                else:
+                    verdict = bf16_backward_check(a, contracts[kind][j], p_, truth[kind][j])
+                    fields.update({f"{name}_{k_}": f"{v_:.3e}" for k_, v_ in verdict.items()
+                                   if k_ != "ok"})
+                    check(verdict["ok"], f"attention {kind} {name} {shape} bf16: {verdict}")
             # each block owns its rows: every kernel run twice gives the same bits
             first = {"fwd": (o, lse), "dkv": got["dkv"], "dq": got["dq"]}[kind]
             again = {"fwd": (o2, lse2), "dkv": (dk2, dv2), "dq": (dq2,)}[kind]
@@ -795,6 +822,111 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
         del q, k, v, do, o, lse, o2, lse2, di, got, plain
         torch.cuda.empty_cache()
     return errs
+
+
+def per_image(fn, *ts):
+    """``fn`` over one image of the (B, ...) tensors at a time, its
+    (tuple of) results concatenated: one image's (n, n) maps at a time."""
+    outs = [fn(*(t[i:i + 1] for t in ts)) for i in range(ts[0].shape[0])]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def attention_grads_float64(q, k, v, do):
+    """(dq, dk, dv) of softmax(q k^T) v in float64 from the inputs' values,
+    with its own lse and di: the yardstick of the tolerance phase."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.softmax(q @ k.transpose(1, 2), dim=-1)
+    ds = p * (do @ v.transpose(1, 2) - ((p @ v) * do).sum(-1, keepdim=True))
+    return ds @ k, ds.transpose(1, 2) @ q, p.transpose(1, 2) @ do
+
+
+def attention_backwards(sa) -> dict:
+    """Each backward as (q, k, v, do, lse, di) -> (dq, dk, dv): the kernels,
+    the plain version (autograd), and the contract versions with float64
+    and with float32 sums."""
+    def contract(acc):
+        return lambda *a: (sa.spatial_attention_dq_contract(*a, acc=acc),
+                           *sa.spatial_attention_dkv_contract(*a, acc=acc))
+
+    return {"kernel": lambda *a: (sa.spatial_attention_dq(*a), *sa.spatial_attention_dkv(*a)),
+            "plain": lambda q, k, v, do, lse, di: sa._plain_grads(q, k, v, do),
+            "contract": contract(torch.float64), "contract32": contract(torch.float32)}
+
+
+def error_stats(a, ref) -> tuple[float, float]:
+    """The largest and the root-mean-square difference, in float64."""
+    d = a.double() - ref.double()
+    return float(d.abs().max()), float(d.square().mean().sqrt())
+
+
+def bf16_backward_check(a, contract, plain, truth) -> dict:
+    """The check of a bf16 backward kernel's output ``a``: within one bf16
+    rounding of the largest value of the contract version (the library's
+    rounding points, float64 sums), and an RMS distance from the float32
+    plain version ``truth`` at most twice the bf16 plain version's."""
+    e_c = error_stats(a, contract)[0]
+    tol = float(bf16_ulp(contract.float().abs().max()))
+    rms_k, rms_p = error_stats(a, truth)[1], error_stats(plain, truth)[1]
+    return {"vs_contract_max": e_c, "vs_contract_tol": tol, "rms_vs_f32": rms_k,
+            "plain_rms_vs_f32": rms_p, "ok": e_c <= tol and rms_k <= 2 * rms_p}
+
+
+TOL_SHAPES = ((2, 16384, 32, 256), ATTN_SHAPE)
+TOL_SEEDS = 8
+
+
+def phase_attention_tolerance(shapes=TOL_SHAPES, seeds=TOL_SEEDS) -> None:
+    """The bf16 backward kernels (dQ, dK/dV) over ``seeds`` input seeds at
+    each shape: the kernel's, the plain version's and the contract
+    version's error against the float64 core and against the contract, each
+    as a maximum and an RMS relative to the float64 core's largest value;
+    the contract with float32 sums gives the float32 summation error. Also
+    the ratios of the former rule (kernel over plain version, distance from
+    the float32 plain version) by maximum and by RMS. Every seed is
+    reported before the check (``bf16_backward_check``) is applied."""
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    backwards = attention_backwards(sa)
+    failed = []
+    for shape in shapes:
+        summary = {}
+        for seed in range(seeds):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            q, k, v, do = attention_inputs(shape, torch.bfloat16, gen)
+            o, lse = sa.spatial_attention_forward(q, k, v)
+            di = (o.float() * do.float()).sum(-1)
+            args = (q, k, v, do, lse, di)
+            got = {src: per_image(fn, *args) for src, fn in backwards.items()}
+            f64 = per_image(attention_grads_float64, q, k, v, do)
+            f32 = per_image(backwards["plain"], *(t.float() for t in (q, k, v, do)), lse, di)
+            for j, out in enumerate(("dq", "dk", "dv")):
+                scale = float(f64[j].abs().max())
+                fields = {}
+                for src in got:
+                    for ref, against in (("f64", f64[j]), ("contract", got["contract"][j])):
+                        if src != ref:
+                            m, r = error_stats(got[src][j], against)
+                            fields[f"{src}_vs_{ref}_max"] = m / scale
+                            fields[f"{src}_vs_{ref}_rms"] = r / scale
+                (mk, rk), (mp, rp) = (error_stats(got[s][j], f32[j]) for s in ("kernel", "plain"))
+                fields["rule_max_ratio"], fields["rule_rms_ratio"] = mk / mp, rk / rp
+                verdict = bf16_backward_check(got["kernel"][j], got["contract"][j],
+                                              got["plain"][j], f32[j])
+                fields["kernel_vs_contract_ulps"] = (verdict["vs_contract_max"]
+                                                     / verdict["vs_contract_tol"])
+                if not verdict["ok"]:
+                    failed.append((shape, seed, out, verdict))
+                for key, val in fields.items():
+                    summary.setdefault((out, key), []).append(val)
+                phase("tolerance", shape="x".join(map(str, shape)), seed=seed, out=out,
+                      ok=verdict["ok"], **{k_: f"{v_:.3e}" for k_, v_ in fields.items()})
+            del q, k, v, do, o, lse, di, got, f64, f32
+            torch.cuda.empty_cache()
+        for out in ("dq", "dk", "dv"):
+            phase("tolerance_summary", shape="x".join(map(str, shape)), seeds=seeds, out=out,
+                  **{f"{key}_worst": f"{max(vals):.3e}" for (o_, key), vals in summary.items()
+                     if o_ == out})
+    check(not failed, f"bf16 backward kernels outside the check: {failed}")
 
 
 def phase_attention_autograd(gen) -> None:
@@ -1184,6 +1316,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(gen)
     errs.update(phase_attention_kernels(gen))
+    phase_attention_tolerance()
     phase_autograd(gen)
     phase_attention_autograd(gen)
 

@@ -19,22 +19,30 @@
 //   per head there).
 //
 // What bounds it. 2 n^2 (2 d_qk + 2 d_v) operations per image (p recomputed,
-// dV, dp, dK): 240 GFLOP at B = 12, against ~60 MB of inputs and outputs:
-// operation-bound on the tensor cores.
+// dV, dp, dK): 232 GFLOP at B = 12, against ~85 MB of inputs and outputs:
+// operation-bound on the tensor cores (0.234 ms at 989 TFLOP/s).
 //
-// What this design does about it. Block (64 keys, one image) keeps its K
-// and V tiles in shared memory and walks the queries in tiles of 64, the
-// q, do, lse and di tiles staged by cp.async two deep; dK and dV stay in
-// registers until the end, so each block owns its output rows: no atomics,
-// the same bits from run to run. bf16: 8 warps; warp (key group kg of 16,
-// half h of d_v) computes p^T (16 keys x 64 queries, the key-major form, so
-// that p^T's accumulator registers are the A fragments of dV += p^T do),
-// its dV half (16 x d_v/2 in registers: the full 64 x 256 float32 dV would
-// not fit one warp group's registers) and its half of the dp^T contraction
-// over d_v; the two halves of dp^T meet in shared memory, and each warp then
-// takes half of dK's d_qk columns. float32: FMA (never TF32), p and ds
-// through shared memory. wgmma, TMA and pipelining come later.
+// What this design does about it. Each block owns 128 keys of one image
+// and walks all of its queries, so dK and dV stay in registers until the
+// end and each block writes its own rows: no atomics, the same bits from
+// run to run. bf16 on wgmma, three warpgroups: a producer, which setmaxnreg
+// drops to 24 registers, and two consumers of 64 keys each, raised to 240.
+// The block's k and v are loaded once by TMA; the producer's warp fills a
+// ring of four query tiles (q and do by TMA over 3-D tensor maps of (B, n,
+// d), which zero-fill rows past n and columns past d; lse and di by its
+// lanes, +inf and 0 past n so that such a query weighs nothing). Each
+// consumer works key-major, so that p^T and ds^T leave the accumulators as
+// the A registers of the next product, with no exchange through shared
+// memory: s^T = k q^T and dp^T = v do^T (wgmma.m64n64k16, both operands
+// K-major from shared memory; v and do in 64-column boxes with the 128-byte
+// swizzle), p^T = exp2(s^T log2e - lse log2e), ds^T = p^T (dp^T - di);
+// then dV += bf16(p^T) do (m64n256k16, do as an MN-major operand, the
+// forward's v layout) and dK += bf16(ds^T) q (m64n{d_qk}k16, q MN-major).
+// Registers a consumer thread: dV 128, dK d_qk / 2, s^T and dp^T 32 each.
+// At d_qk 64 the query tile is 32 (s^T and dp^T 16 each) so that the 240
+// registers hold. float32: FMA (never TF32), p and ds through shared memory.
 
+#include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,58 +52,233 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 64;   // queries per tile
-constexpr int BK = 64;   // keys per block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// ---------------------------------------------------------------------------
+// bf16 on wgmma. Shared memory holds the block's k (128 rows) and v (four
+// 64-column boxes of 128 rows), a ring of query tiles (q, do in four
+// 64-column boxes, lse and di), and the ring's mbarriers. q and k rows are
+// 2 * DQK bytes (32, 64 or 128) in the swizzle of that width (TMA writes
+// it, the wgmma descriptors name it); v and do rows are 128 bytes in the
+// 128-byte swizzle. Every tile starts on a 1024-byte boundary.
+
+constexpr int BKB = 128;      // keys per block: two consumer warpgroups of 64
+constexpr int STAGES = 4;
+constexpr int NT = 384;       // threads per block: producer + two consumers
+constexpr int CONSUMERS = 256;
+constexpr int V_BOX = BKB * 128;   // one 64-column box of the block's v
+
+template <int DQK>
+struct Layout {
+  static constexpr int BQ = DQK == 64 ? 32 : 64;          // queries per tile
+  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
+  static constexpr int DO_BOX = BQ * 128;                 // one 64-column box of a do tile
+  static constexpr int Q_TILE = BQ * RB;
+  static constexpr int K = 0;                             // [BKB][RB]
+  static constexpr int V = K + BKB * RB;                  // [4][BKB][128]
+  static constexpr int Q = V + 4 * V_BOX;                 // [STAGES][BQ][RB]
+  static constexpr int DO = Q + STAGES * Q_TILE;          // [STAGES][4][BQ][128]
+  static constexpr int LSE = DO + STAGES * 4 * DO_BOX;    // [STAGES][BQ] float, log2 units
+  static constexpr int DI = LSE + STAGES * BQ * 4;        // [STAGES][BQ] float
+  static constexpr int BAR = DI + STAGES * BQ * 4;        // full[STAGES], empty[STAGES], kv
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
+  static_assert(Q_TILE % 1024 == 0 && (BKB * RB) % 1024 == 0, "tiles on 1024-byte boundaries");
+};
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Until the phase of this parity has completed. (No trap on a long wait: one
+// trap block shared by the producer and the consumers makes their paths
+// meet, and ptxas then holds the consumers to the entry's registers.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8; register i holds (row g, cols 2t, 2t+1) of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Transposed: register i holds (rows 2t, 2t+1, col g) of matrix i.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Two transposed matrices, addressed by lanes 0-15.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// One box of a 3-D tensor map (coordinates innermost first) to shared
+// memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// d (64 x 64, float32) = or += a (64 x 16, shared) b^T (64 x 16, shared),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, float32) = or += a (64 x 16, shared) b^T (32 x 16, shared),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256, float32) += a (64 x 16, bf16 registers) b (16 x 256, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += a (64 x 16, bf16 registers) b (16 x 64, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, float32) += a (64 x 16, bf16 registers) b (16 x 32, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 16, float32) += a (64 x 16, bf16 registers) b (16 x 16, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -103,231 +286,192 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on mma.sync. DQK: d_qk padded to 16, 32 or 64; DVH: half of d_v
-// padded to 64 or 128. Shared-memory rows padded by 8 elements.
-
-constexpr int XS = BQ + 4;   // padded row stride of the dp^T exchange
-
-template <int DQK, int DVH>
-__global__ void __launch_bounds__(256, 1)
-attn_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ di,
-              bf16* __restrict__ dk, bf16* __restrict__ dv_out, int n, int dqk, int dv) {
-  constexpr int DV = 2 * DVH;
-  constexpr int QS = DQK + 8;
-  constexpr int VS = DV + 8;
-  constexpr int DKH = DQK / 2;   // dK columns a warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][QS]
-  bf16* vs = ks + BK * QS;                         // [BK][VS]
-  bf16* qs = vs + BK * VS;                         // [2][BQ][QS]
-  bf16* dos = qs + 2 * BQ * QS;                    // [2][BQ][VS]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * VS);   // [2][BQ], log2 units
-  float* di_s = lse_s + 2 * BQ;                                 // [2][BQ]
-  float* xs = di_s + 2 * BQ;                                    // [2 halves][4 groups][16][XS]
-
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// One consumer warpgroup: its 64 keys against every query of the image.
+// Query tile j is read from ring stage j % STAGES once its full barrier
+// completes, and released on its empty barrier when all four products have
+// read it. Accumulator layout (wgmma's): warp w of the group holds rows
+// 16w + g and 16w + g + 8 (g = lane / 4), register 4c + e column 8c + 2t +
+// (e & 1) (t = lane % 4) of row g + 8 (e >> 1); rows are keys, so the
+// registers 8kk..8kk+7 of s^T or ds^T are the A fragment of queries
+// 16kk..16kk+15.
+template <int DQK>
+__device__ __forceinline__ void consume_keys(uint32_t base, const float* __restrict__ lse_s,
+                                             const float* __restrict__ di_s, int cw,
+                                             uint32_t full, uint32_t empty, uint32_t kv_full,
+                                             int n, int boxes, bf16* __restrict__ dk_img,
+                                             bf16* __restrict__ dv_img, int key0, int dqk,
+                                             int dv) {
+  using L = Layout<DQK>;
+  constexpr int BQ = L::BQ;
+  const int lane = threadIdx.x % 32;
+  const int wl = (threadIdx.x / 32) % 4;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int kg = warp & 3;    // keys kg*16 .. +16
-  const int half = warp >> 2; // d_v columns half*DVH .. +DVH, dK columns half*DKH .. +DKH
-  const bf16* qb = q + (size_t)b * n * dqk;
-  const bf16* kb = k + (size_t)b * n * dqk;
-  const bf16* vb = v + (size_t)b * n * dv;
-  const bf16* dob = dout + (size_t)b * n * dv;
-  const float* lseb = lse + (size_t)b * n;
-  const float* dib = di + (size_t)b * n;
+  const uint32_t k_rows = base + L::K + cw * 64 * L::RB;
+  const uint32_t v_rows = base + L::V + cw * 64 * 128;
 
-  for (int i = tid; i < BK * (DQK / 8); i += 256) {
-    const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-    const bool ok = k0 + r < n && c < dqk;
-    cp_async16(&ks[r * QS + c], ok ? kb + (size_t)(k0 + r) * dqk + c : kb, ok);
-  }
-  for (int i = tid; i < BK * (DV / 8); i += 256) {
-    const int r = i / (DV / 8), c = (i % (DV / 8)) * 8;
-    const bool ok = k0 + r < n && c < dv;
-    cp_async16(&vs[r * VS + c], ok ? vb + (size_t)(k0 + r) * dv + c : vb, ok);
-  }
-  // queries past n: q and do zero, lse +inf so that p = 0
-  auto stage = [&](int i0, int buf) {
-    for (int i = tid; i < BQ * (DQK / 8); i += 256) {
-      const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-      const bool ok = i0 + r < n && c < dqk;
-      cp_async16(&qs[(buf * BQ + r) * QS + c], ok ? qb + (size_t)(i0 + r) * dqk + c : qb, ok);
-    }
-    for (int i = tid; i < BQ * (DV / 8); i += 256) {
-      const int r = i / (DV / 8), c = (i % (DV / 8)) * 8;
-      const bool ok = i0 + r < n && c < dv;
-      cp_async16(&dos[(buf * BQ + r) * VS + c], ok ? dob + (size_t)(i0 + r) * dv + c : dob, ok);
-    }
-    if (tid < BQ) {
-      const bool ok = i0 + tid < n;
-      lse_s[buf * BQ + tid] = ok ? lseb[i0 + tid] * LOG2E : INFINITY;
-      di_s[buf * BQ + tid] = ok ? dib[i0 + tid] : 0.f;
-    }
-  };
+  float dv_acc[128];
+  float dk_acc[DQK / 2];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DQK / 2; ++i) dk_acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
 
   const int nq = (n + BQ - 1) / BQ;
-  stage(0, 0);
-  cp_async_commit();
+  for (int j = 0; j < nq; ++j) {
+    const int stage = j % STAGES;
+    mbar_wait(full + 8 * stage, (j / STAGES) & 1);
+    const uint32_t q_tile = base + L::Q + stage * L::Q_TILE;
+    const uint32_t do_tile = base + L::DO + stage * 4 * L::DO_BOX;
 
-  float dv_acc[DVH / 8][4];
-  float dk_acc[DKH / 8][4];
+    // s^T = k q^T and dp^T = v do^T: 64 keys x BQ queries each
+    float st[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int j = 0; j < DVH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv_acc[j][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < DKH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = 0.f;
-  uint32_t kf[DQK / 16][4];
-  const int lrow = (lane % 8) + ((lane / 8) % 2) * 8;   // A / trans-B row of this lane
-  const int lcol = (lane / 16) * 8;
-  const int brow = (lane % 8) + (lane / 16) * 8;        // non-trans B row (n)
-  const int bcol = ((lane / 8) % 2) * 8;
-  float* x_mine = xs + (half * 4 + kg) * 16 * XS;
-  const float* x_other = xs + ((half ^ 1) * 4 + kg) * 16 * XS;
-
-  for (int it = 0; it < nq; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < nq) stage((it + 1) * BQ, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk)
-        ldsm_x4(kf[kk], &ks[(kg * 16 + lrow) * QS + kk * 16 + lcol]);
-    }
-    const bf16* qt = qs + buf * BQ * QS;
-    const bf16* dot = dos + buf * BQ * VS;
-    const float* lt = lse_s + buf * BQ;
-    const float* dt = di_s + buf * BQ;
-
-    // p^T = exp(k q^T - lse): 16 keys x 64 queries
-    float p[BQ / 8][4];
-#pragma unroll
-    for (int jt = 0; jt < BQ / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[jt][e] = 0.f;
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dp[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DQK / 16; ++kk)
+      wgmma_ss(st, make_desc(k_rows + kk * 32, 16, 8 * L::RB, L::MODE),
+               make_desc(q_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+    for (int c = 0; c < boxes; ++c) {   // boxes wholly past d_v are not loaded
 #pragma unroll
-      for (int jp = 0; jp < BQ / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, &qt[(jp * 16 + brow) * QS + kk * 16 + bcol]);
-        mma_bf16(p[2 * jp], kf[kk], r[0], r[1]);
-        mma_bf16(p[2 * jp + 1], kf[kk], r[2], r[3]);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(dp, make_desc(v_rows + c * V_BOX + kk * 32, 16, 1024, 1),
+                 make_desc(do_tile + c * L::DO_BOX + kk * 32, 16, 1024, 1), c | kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(st);
+    reg_fence(dp);
+
+    // p^T and ds^T, packed to bf16 straight into the A fragments
+    const float* lse_t = lse_s + stage * BQ;
+    const float* di_t = di_s + stage * BQ;
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * c + 2 * t);
+      const float2 d = *reinterpret_cast<const float2*>(di_t + 8 * c + 2 * t);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = fast_exp2(fmaf(st[4 * c + e], LOG2E, -(e & 1 ? l.y : l.x)));
+        ds[e] = p[e] * (dp[4 * c + e] - (e & 1 ? d.y : d.x));
       }
-#pragma unroll
-    for (int jt = 0; jt < BQ / 8; ++jt) {
-      const float l0 = lt[jt * 8 + 2 * t], l1 = lt[jt * 8 + 2 * t + 1];
-      p[jt][0] = exp2f(p[jt][0] * LOG2E - l0);
-      p[jt][1] = exp2f(p[jt][1] * LOG2E - l1);
-      p[jt][2] = exp2f(p[jt][2] * LOG2E - l0);
-      p[jt][3] = exp2f(p[jt][3] * LOG2E - l1);
+      pa[c / 2][2 * (c & 1)] = pack_bf16(p[0], p[1]);
+      pa[c / 2][2 * (c & 1) + 1] = pack_bf16(p[2], p[3]);
+      da[c / 2][2 * (c & 1)] = pack_bf16(ds[0], ds[1]);
+      da[c / 2][2 * (c & 1) + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dV[kg, half] += bf16(p^T) do[:, half]
+    // dV += bf16(p^T) do, dK += bf16(ds^T) q
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs(dv_acc, pa[kk], make_desc(do_tile + kk * 2048, L::DO_BOX, 1024, 1));
 #pragma unroll
-      for (int jp = 0; jp < DVH / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &dot[(kk * 16 + lrow) * VS + half * DVH + jp * 16 + lcol]);
-        mma_bf16(dv_acc[2 * jp], a, r[0], r[1]);
-        mma_bf16(dv_acc[2 * jp + 1], a, r[2], r[3]);
-      }
-    }
-
-    // this half's share of dp^T = v do^T (contraction over d_v)
-    float dp[BQ / 8][4];
-#pragma unroll
-    for (int jt = 0; jt < BQ / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[jt][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < DVH / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, &vs[(kg * 16 + lrow) * VS + half * DVH + kk * 16 + lcol]);
-#pragma unroll
-      for (int jp = 0; jp < BQ / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, &dot[(jp * 16 + brow) * VS + half * DVH + kk * 16 + bcol]);
-        mma_bf16(dp[2 * jp], a, r[0], r[1]);
-        mma_bf16(dp[2 * jp + 1], a, r[2], r[3]);
-      }
-    }
-#pragma unroll
-    for (int jt = 0; jt < BQ / 8; ++jt) {
-      *reinterpret_cast<float2*>(&x_mine[g * XS + jt * 8 + 2 * t]) = make_float2(dp[jt][0], dp[jt][1]);
-      *reinterpret_cast<float2*>(&x_mine[(g + 8) * XS + jt * 8 + 2 * t]) =
-          make_float2(dp[jt][2], dp[jt][3]);
-    }
-    __syncthreads();
-    // ds^T = p^T (dp^T - di), both halves of the contraction in one order
-    // (half 0's share first) so that the two warps of a key group agree
-#pragma unroll
-    for (int jt = 0; jt < BQ / 8; ++jt) {
-      const float2 o0 = *reinterpret_cast<const float2*>(&x_other[g * XS + jt * 8 + 2 * t]);
-      const float2 o1 = *reinterpret_cast<const float2*>(&x_other[(g + 8) * XS + jt * 8 + 2 * t]);
-      const float d0 = dt[jt * 8 + 2 * t], d1 = dt[jt * 8 + 2 * t + 1];
-      const float s0 = half ? o0.x + dp[jt][0] : dp[jt][0] + o0.x;
-      const float s1 = half ? o0.y + dp[jt][1] : dp[jt][1] + o0.y;
-      const float s2 = half ? o1.x + dp[jt][2] : dp[jt][2] + o1.x;
-      const float s3 = half ? o1.y + dp[jt][3] : dp[jt][3] + o1.y;
-      p[jt][0] *= s0 - d0;
-      p[jt][1] *= s1 - d1;
-      p[jt][2] *= s2 - d0;
-      p[jt][3] *= s3 - d1;
-    }
-
-    // dK[kg, this warp's d_qk half] += bf16(ds^T) q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-      for (int jt = 0; jt < DKH / 8; ++jt) {
-        uint32_t r[2];
-        ldsm_x2_trans(r, &qt[(kk * 16 + lrow) * QS + half * DKH + jt * 8]);
-        mma_bf16(dk_acc[jt], a, r[0], r[1]);
-      }
-    }
-    __syncthreads();   // the q / do buffer and the exchange are reused
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs(dk_acc, da[kk], make_desc(q_tile + kk * 16 * L::RB, L::Q_TILE, 8 * L::RB, L::MODE));
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    mbar_arrive(empty + 8 * stage);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = k0 + kg * 16 + g + 8 * h;
+    const int key = key0 + wl * 16 + g + 8 * h;
     if (key >= n) continue;
-    bf16* vrow = dv_out + ((size_t)b * n + key) * dv + half * DVH;
+    bf16* vrow = dv_img + (size_t)key * dv;
 #pragma unroll
-    for (int jt = 0; jt < DVH / 8; ++jt)
-      if (half * DVH + jt * 8 < dv)
-        *reinterpret_cast<__nv_bfloat162*>(vrow + jt * 8 + 2 * t) =
-            __floats2bfloat162_rn(dv_acc[jt][2 * h], dv_acc[jt][2 * h + 1]);
-    bf16* krow = dk + ((size_t)b * n + key) * dqk + half * DKH;
+    for (int c = 0; c < 32; ++c)
+      if (c * 8 < dv)
+        *reinterpret_cast<__nv_bfloat162*>(vrow + c * 8 + 2 * t) =
+            __floats2bfloat162_rn(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+    bf16* krow = dk_img + (size_t)key * dqk;
 #pragma unroll
-    for (int jt = 0; jt < DKH / 8; ++jt)
-      if (half * DKH + jt * 8 < dqk)
-        *reinterpret_cast<__nv_bfloat162*>(krow + jt * 8 + 2 * t) =
-            __floats2bfloat162_rn(dk_acc[jt][2 * h], dk_acc[jt][2 * h + 1]);
+    for (int c = 0; c < DQK / 8; ++c)
+      if (c * 8 < dqk)
+        *reinterpret_cast<__nv_bfloat162*>(krow + c * 8 + 2 * t) =
+            __floats2bfloat162_rn(dk_acc[4 * c + 2 * h], dk_acc[4 * c + 2 * h + 1]);
+  }
+}
+
+// q, k, v and do come in through tensor maps over (B, n, d): boxes of (DQK,
+// BQ, 1) for q, (DQK, 128, 1) for k, (64, 128, 1) for v and (64, BQ, 1)
+// for do.
+template <int DQK>
+__global__ void __launch_bounds__(NT, 1)
+attn_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+              const float* __restrict__ lse, const float* __restrict__ di,
+              bf16* __restrict__ dk, bf16* __restrict__ dv_out, int n, int dqk, int dv) {
+  using L = Layout<DQK>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::LSE);
+  float* di_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::DI);
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES, kv_full = empty + 8 * STAGES;
+
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * BKB;
+  const int boxes = (dv + 63) / 64;   // v and do boxes wholly past d_v are not loaded
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 32);   // the producer warp's lanes; lane 0's arrive expects the TMA bytes
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The two roles' paths must never meet again (not even in a shared trap
+  // block), or setmaxnreg no longer sets the consumers' register budget.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: stage j waits until the consumers have released tile j - STAGES
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, BKB * L::RB + boxes * V_BOX);
+        tma_load(base + L::K, &tk, 0, k0, b, kv_full);
+        for (int c = 0; c < boxes; ++c)
+          tma_load(base + L::V + c * V_BOX, &tv, 64 * c, k0, b, kv_full);
+      }
+      const float* lse_b = lse + (size_t)b * n;
+      const float* di_b = di + (size_t)b * n;
+      for (int j = 0, i0 = 0; i0 < n; ++j, i0 += L::BQ) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        // queries past n: lse +inf and di 0, so that p and ds are 0
+        for (int r = lane; r < L::BQ; r += 32) {
+          const bool ok = i0 + r < n;
+          lse_s[s * L::BQ + r] = ok ? lse_b[i0 + r] * LOG2E : INFINITY;
+          di_s[s * L::BQ + r] = ok ? di_b[i0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, L::Q_TILE + boxes * L::DO_BOX);
+          tma_load(base + L::Q + s * L::Q_TILE, &tq, 0, i0, b, full + 8 * s);
+          for (int c = 0; c < boxes; ++c)
+            tma_load(base + L::DO + (s * 4 + c) * L::DO_BOX, &tdo, 64 * c, i0, b, full + 8 * s);
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    consume_keys<DQK>(base, lse_s, di_s, cw, full, empty, kv_full, n, boxes,
+                      dk + (size_t)b * n * dqk, dv_out + (size_t)b * n * dv, k0 + cw * 64, dqk,
+                      dv);
   }
 }
 
@@ -336,6 +480,8 @@ attn_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // through shared memory; thread (ty, tx) accumulates dV for keys ty + 16a
 // and value columns tx + 16c, dK for the same keys and d_qk columns tx + 16c.
 
+constexpr int BQ = 64;   // queries per tile
+constexpr int BK = 64;   // keys per block
 constexpr int PS = BK + 1;
 
 __global__ void __launch_bounds__(256, 1)
@@ -475,31 +621,70 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DQK, int DVH>
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* di, void* dk, void* dv_out, int B, int n,
-                int dqk, int dv, cudaStream_t st) {
-  constexpr int QS = DQK + 8, VS = 2 * DVH + 8;
-  const int smem = (BK * QS + BK * VS + 2 * BQ * QS + 2 * BQ * VS) * 2 +
-                   (4 * BQ + 2 * 4 * 16 * XS) * 4;
-  auto kernel = attn_dkv_bf16<DQK, DVH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BK - 1) / BK, 1, B);
-  kernel<<<grid, 256, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv_out),
-      n, dqk, dv);
-  return static_cast<int>(cudaGetLastError());
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links no libcuda; null if the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 (B, n, d) tensor in boxes of (box_d,
+// box_rows, 1); what lies past n or d reads as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int n, int d, int box_d,
+                int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};   // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)box_d, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DQK>
-int launch_bf16_dv(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, void* dk, void* dv_out, int B, int n,
-                   int dqk, int dv, cudaStream_t st) {
-  return dv <= 128
-             ? launch_bf16<DQK, 64>(q, k, v, dout, lse, di, dk, dv_out, B, n, dqk, dv, st)
-             : launch_bf16<DQK, 128>(q, k, v, dout, lse, di, dk, dv_out, B, n, dqk, dv, st);
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* di, void* dk, void* dv_out, int B, int n,
+                int dqk, int dv, cudaStream_t st) {
+  using L = Layout<DQK>;
+  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, B, n, dqk, DQK, L::BQ, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, DQK, BKB, swz_qk) ||
+      !tensor_map(&tv, v, B, n, dv, 64, BKB, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tdo, dout, B, n, dv, 64, L::BQ, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = L::BYTES;
+  auto kernel = attn_dkv_bf16<DQK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + BKB - 1) / BKB, B);
+  kernel<<<grid, NT, smem, st>>>(tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dk),
+                                 static_cast<bf16*>(dv_out), n, dqk, dv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -519,9 +704,9 @@ extern "C" int spatial_attention_dkv(const void* q, const void* k, const void* v
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (dtype == 1) {
-    if (dqk <= 16) return launch_bf16_dv<16>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
-    if (dqk <= 32) return launch_bf16_dv<32>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
-    return launch_bf16_dv<64>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
+    if (dqk <= 16) return launch_bf16<16>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
+    if (dqk <= 32) return launch_bf16<32>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
+    return launch_bf16<64>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BK * (dqk + 1) + 2 * BK * (dv + 1) + 2 * BQ * PS + 2 * BQ) * 4;

@@ -26,6 +26,11 @@ tensor outside them raises. A CUDA tensor launches the kernel (built at
 first use) or raises; the plain versions serve CPU tensors.
 ``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES`` and ``ATTN_DQ_LAUNCHES`` count the
 kernel launches.
+
+``spatial_attention_dkv_contract`` and ``spatial_attention_dq_contract`` are
+the backward as the library kernel rounds it (p and ds in the inputs' dtype,
+sums in float64): the yardstick of the bf16 backward kernels in the tests
+and on the card, never called on the main path.
 """
 
 from __future__ import annotations
@@ -148,6 +153,40 @@ def spatial_attention_dq_reference(q, k, v, do, lse, di):
     ``do`` (``lse`` and ``di`` are not read)."""
     _check(q, k, v)
     return _plain_grads(q, k, v, do)[0]
+
+
+def _contract_p_ds(q, k, v, do, lse, di, acc):
+    """The library backward's p and ds at its rounding points, as ``acc``
+    tensors: p = exp(q k^T - lse); ds = p (do v^T - di), rounded to the
+    inputs' dtype when that is not float32. Returns (p, ds, rounding)."""
+    _check_bwd(q, k, v, do, lse, di)
+    if q.dtype == torch.float32:
+        rnd = lambda t: t  # noqa: E731
+    else:
+        rnd = lambda t: t.to(q.dtype).to(acc)  # noqa: E731
+    p = torch.exp(q.to(acc) @ k.to(acc).transpose(1, 2) - lse.to(acc)[..., None])
+    dp = do.to(acc) @ v.to(acc).transpose(1, 2)
+    return p, rnd(p * (dp - di.to(acc)[..., None])), rnd
+
+
+def spatial_attention_dkv_contract(q, k, v, do, lse, di, acc=torch.float64):
+    """dK, dV as the library's backward (and the kernel) define them, for a
+    yardstick of the kernel: p = exp(q k^T - lse), dV = p^T do and dK =
+    ds^T q with ds = p (do v^T - di), p and ds rounded to the inputs' dtype
+    before their products (no rounding for float32 inputs). Sums in ``acc``
+    (float64 unless asked otherwise), each result cast once to the inputs'
+    dtype. Only the tests and the smoke call it."""
+    p, ds, rnd = _contract_p_ds(q, k, v, do, lse, di, acc)
+    dv = rnd(p).transpose(1, 2) @ do.to(acc)
+    dk = ds.transpose(1, 2) @ q.to(acc)
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def spatial_attention_dq_contract(q, k, v, do, lse, di, acc=torch.float64):
+    """dQ = ds k at the library's rounding points, as
+    ``spatial_attention_dkv_contract`` defines ds."""
+    _, ds, _ = _contract_p_ds(q, k, v, do, lse, di, acc)
+    return (ds @ k.to(acc)).to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -67,6 +67,101 @@ def test_plain_core_matches_jax_flash_kernel_in_interpret_mode():
         assert _rel_to_max(a, np.asarray(b)) <= 1e-4, name
 
 
+def _jax_flash_blocks(q, k, v, block):
+    """flash_spatial_attention's adaptation of the library kernel (q, k
+    zero-padded to 128, v in 128-wide heads that share the weights), with
+    every block size ``block``: an n that its 512/1024 blocks do not tile."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import BlockSizes, flash_attention
+
+    b, n, inner = q.shape
+    heads = v.shape[-1] // 128
+    qh, kh = (jnp.broadcast_to(jnp.pad(t, ((0, 0), (0, 0), (0, 128 - inner)))[:, None],
+                               (b, heads, n, 128)) for t in (q, k))
+    vh = v.reshape(b, n, heads, 128).transpose(0, 2, 1, 3)
+    sizes = BlockSizes(**{f: 1 if f == "block_b" else block
+                          for f in BlockSizes.__dataclass_fields__})
+    o = flash_attention(qh, kh, vh, causal=False, sm_scale=1.0, block_sizes=sizes)
+    return o.transpose(0, 2, 1, 3).reshape(b, n, heads * 128)
+
+
+@pytest.mark.parametrize("shape, block", [((1, 512, 16, 128), None), ((1, 640, 32, 256), 128)])
+def test_bf16_contract_backward_matches_jax_flash_kernel(shape, block):
+    """The contract versions of dK/dV and dQ (p and ds rounded to bf16, sums
+    in float64) against the Pallas flash backward run in bf16 in interpret
+    mode on the same bf16 inputs: flash_spatial_attention at (1, 512) with
+    one 128-wide head, and the library kernel in 128-blocks at n = 640 with
+    two heads. Both sides round each output once, and the library rounds ds
+    once per head (twice at d_v = 256) where the contract rounds it once:
+    the tolerance is one bf16 rounding of each output's largest value."""
+    import functools
+
+    import jax.experimental.pallas.tpu as pltpu
+
+    q, k, v, g = _qkv(shape, seed=4)
+    q, k = q * 0.5, k * 0.5
+    fn = (flash_spatial_attention if block is None
+          else functools.partial(_jax_flash_blocks, block=block))
+    with pltpu.force_tpu_interpret_mode():
+        o, vjp = jax.vjp(fn, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+        want = vjp(jnp.asarray(g, jnp.bfloat16))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    # the forward's residuals: lse of the logits, di = sum(o * do) of the bf16 o
+    lse = torch.logsumexp(tq.double() @ tk.double().transpose(1, 2), -1).float()
+    di = (torch.from_numpy(np.array(o.astype(jnp.float32))) * tg.float()).sum(-1)
+    dk, dv = sa.spatial_attention_dkv_contract(tq, tk, tv, tg, lse, di)
+    dq = sa.spatial_attention_dq_contract(tq, tk, tv, tg, lse, di)
+    for name, got, w in zip("qkv", (dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - w).max()
+        assert err <= _bf16_ulp(np.abs(w).max()), (name, err)
+
+
+@pytest.mark.parametrize("acc", [torch.float64, torch.float32])
+def test_contract_versions_in_float32_are_the_references(acc):
+    """For float32 inputs the contract rounds nothing: it is the plain
+    backward up to the order of its sums."""
+    q, k, v, g = (torch.from_numpy(a) for a in _qkv((2, 96, 24, 40), seed=5))
+    o, lse = sa.spatial_attention_forward(q, k, v)
+    di = (o * g).sum(-1)
+    got = (sa.spatial_attention_dq_contract(q, k, v, g, lse, di, acc),
+           *sa.spatial_attention_dkv_contract(q, k, v, g, lse, di, acc))
+    want = (sa.spatial_attention_dq_reference(q, k, v, g, lse, di),
+            *sa.spatial_attention_dkv_reference(q, k, v, g, lse, di))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert _rel_to_max(a.numpy(), b.numpy()) <= 1e-5
+
+
+def test_smoke_float64_core_is_autograd_in_float64():
+    """chip_smoke.py's float64 yardstick of the bf16 backward kernels
+    (``attention_grads_float64``, one image at a time through
+    ``per_image``) is autograd of softmax(q k^T) v in float64, and the bf16
+    contract versions pass its check against themselves."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    q, k, v, g = (torch.from_numpy(a).double() for a in _qkv((3, 40, 8, 24), seed=6))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = torch.softmax(leaves[0] @ leaves[1].transpose(1, 2), -1) @ leaves[2]
+    want = torch.autograd.grad(o, leaves, g)
+    got = cs.per_image(cs.attention_grads_float64, q, k, v, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    bq, bk, bv, bg = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    o, lse = sa.spatial_attention_forward(bq, bk, bv)
+    di = (o.float() * bg.float()).sum(-1)
+    dk, dv = sa.spatial_attention_dkv_contract(bq, bk, bv, bg, lse, di)
+    plain = sa.spatial_attention_dkv_reference(bq, bk, bv, bg, lse, di)
+    truth = sa.spatial_attention_dkv_reference(*(t.float() for t in (bq, bk, bv, bg)), lse, di)
+    for a, p, t in zip((dk, dv), plain, truth):
+        assert cs.bf16_backward_check(a, a, p, t)["ok"]
+
+
 def _jax_einsum_core(q, k, v):
     """SelfAttention2d's einsum path (attention.py:188-191)."""
     logits = jnp.einsum("bqc,bkc->bqk", q, k, preferred_element_type=jnp.float32)
