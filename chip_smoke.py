@@ -14,11 +14,13 @@ Phases, one line each:
 3. kernels  - each kernel against its plain PyTorch version on the card
               (TF32 off): the trunk conv, its input grad (dx) and its
               weight grad (dw), at the trunk shapes in float32 and bf16
-              (dx also at the 512^2 trunk's (2, 128, 128, 256)) and at
-              ragged shapes down to H, W of 2 and 3, every dx route
-              (float32 FMA, bf16 wgmma, channels that are not multiples of
-              8 zero-padded to them) named on its line; dw and bf16
-              dx run twice must be bitwise equal. The attention forward, dK/dV and dQ
+              (dx and dw also at the 512^2 trunk's (2, 128, 128, 256)) and
+              at ragged shapes down to H, W of 2 and 3 (dw also at Cin 136
+              and 264, Cout 72 and 520, W 65 and 129), every dx and dw
+              route (float32 FMA, bf16 wgmma, channels that are not
+              multiples of 8 zero-padded to them) named on its line; dw
+              within 1e-4 of the largest value; dw and bf16 dx run twice
+              must be bitwise equal. The attention forward, dK/dV and dQ
               at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
               bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
               ragged shapes, the bf16 forward's tile edges (n of 4097
@@ -57,24 +59,26 @@ Phases, one line each:
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
               must launch 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
-              trunk convs, each with its backward), every dx on the bf16
-              wgmma route; losses finite; G, D and
+              trunk convs, each with its backward), every dx and dw on
+              its bf16 wgmma route; losses finite; G, D and
               EMA moved. Then one float32 step at batch 2 through the kernels
               and through the plain versions, from one state and one set of
               draws: losses agree to 1e-4, Adam's mu per leaf to 1e-3 of the
               leaf's max. train_variant: 4 variant steps (VARIANT_CUT), each
               launching 54/54/54 trunk and 6/6/6 attention kernels (fwd, dK/dV,
-              dQ: 2 blocks x 3 G passes), every dx on the wgmma route;
+              dQ: 2 blocks x 3 G passes), every dx and dw on its wgmma
+              route;
               losses finite; the attention,
               channel-attention and style-gate parameters and their EMA
               moved. Float32 at batch 2: the variant step amplifies any
               rounding in the attention core, so the kernel path is held to
               be no farther from a float64-core path than the plain path is
               (see phase_train_variant);
-7. timing   - trunk conv at batch 32 (serving) and dx, dw at batch 12 (the
-              train step), bf16, against their plain versions and cuDNN's
-              bf16 calls (CUDA events), and dx's three kernels (frame, main,
-              fold) apart on the profiler's device clock; the attention
+7. timing   - trunk conv at batch 32 (serving) and 12 (the train step), dx
+              and dw at batch 12, bf16, against their plain versions and
+              cuDNN's bf16 calls (CUDA events), and dx's three kernels
+              (frame, main, fold) and dw's two (main, reduce) apart on the
+              profiler's device clock; the attention
               kernels at (12, 4096, 32, 256) bf16 against their plain
               versions, and the forward, the backward alone and forward +
               backward against scaled_dot_product_attention, and
@@ -85,7 +89,9 @@ Phases, one line each:
               step of each, with the device's busy time and idle share.
 
 Any failure raises and exits non-zero. The second-to-last line is the
-kernel table as JSON; the last line is
+kernel table as JSON (each row's times and bound at the shape its
+`launches` run at: the trunk forward's at the train step's batch 12, with
+its batch-32 served time, bound and cuDNN time beside them); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -269,13 +275,20 @@ def counts(resblock) -> tuple[int, int, int]:
 def reset_counts(resblock) -> None:
     resblock.LAUNCHES = resblock.DX_LAUNCHES = resblock.DW_LAUNCHES = 0
     resblock.DX_ROUTE_LAUNCHES = dict.fromkeys(resblock.DX_ROUTES, 0)
+    resblock.DW_ROUTE_LAUNCHES = dict.fromkeys(resblock.DW_ROUTES, 0)
 
 
-def check_dx_routes(resblock, before: dict, want: int, what: str) -> None:
-    """Every dx launched since ``before`` took the bf16 wgmma route."""
-    got = {k: v - before[k] for k, v in resblock.DX_ROUTE_LAUNCHES.items()}
-    check(got == dict(dict.fromkeys(resblock.DX_ROUTES, 0), bf16_wgmma=want),
-          f"{what}: dx launches by route {got}, want {want} on bf16_wgmma")
+def route_counts(resblock) -> dict:
+    return {"dx": dict(resblock.DX_ROUTE_LAUNCHES), "dw": dict(resblock.DW_ROUTE_LAUNCHES)}
+
+
+def check_grad_routes(resblock, before: dict, want: int, what: str) -> None:
+    """Every dx and every dw launched since ``before`` (``route_counts``)
+    took its bf16 wgmma route."""
+    for op, now in route_counts(resblock).items():
+        got = {k: v - before[op][k] for k, v in now.items()}
+        check(got == dict(dict.fromkeys(now, 0), bf16_wgmma=want),
+              f"{what}: {op} launches by route {got}, want {want} on bf16_wgmma")
 
 
 def before_instance_norm(name: str) -> bool:
@@ -340,14 +353,19 @@ def phase_kernels(gen) -> dict:
               differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad)
         check(bad == 0, f"reflect_conv3x3 {shape} {dtype}: {bad} values over tolerance")
 
-    # dx routes: float32 FMA; bf16 wgmma (the trunks of train_gan_cutpp.yaml
-    # and _512.yaml, Cin past one 256-wide block, Cout past 64-wide K-stages,
-    # channels padded to 8 (Cin 130, Cout 21), ragged planes, H, W of 2 and 3)
+    # dx and dw routes: float32 FMA; bf16 wgmma (the trunks of
+    # train_gan_cutpp.yaml and _512.yaml; dx: Cin past one 256-wide block,
+    # Cout past 64-wide K-stages; dw: Cin past 128-wide blocks (136, 264) and
+    # their second 64-channel box, Cout past them (72, 520), W past 64-pixel
+    # segments (65, 129); channels padded to 8 (Cin 130, Cout 21), ragged
+    # planes, H, W of 2 and 3)
     grad_cases = [(TRAIN_SHAPE, 256, torch.float32), (TRAIN_SHAPE, 256, torch.bfloat16),
                   ((2, 128, 128, 256), 256, torch.float32),
                   ((2, 128, 128, 256), 256, torch.bfloat16),
                   ((3, 17, 33, 130), 70, torch.float32), ((3, 17, 33, 130), 70, torch.bfloat16),
                   ((3, 17, 33, 136), 72, torch.bfloat16), ((2, 9, 9, 264), 512, torch.bfloat16),
+                  ((2, 9, 9, 264), 520, torch.bfloat16), ((2, 5, 65, 16), 24, torch.bfloat16),
+                  ((1, 3, 129, 8), 8, torch.bfloat16),
                   ((2, 2, 3, 13), 21, torch.float32), ((2, 2, 3, 13), 21, torch.bfloat16),
                   ((1, 3, 2, 8), 8, torch.float32), ((1, 3, 2, 8), 8, torch.bfloat16),
                   ((2, 2, 2, 16), 24, torch.bfloat16)]
@@ -355,6 +373,7 @@ def phase_kernels(gen) -> dict:
         x, w, _ = conv_inputs(shape, c_out, dtype, gen)
         dy = torch.randn(shape[:3] + (c_out,), device="cuda", generator=gen).to(dtype)
         route = resblock.dx_route(dy.shape, shape[3], dtype)
+        dw_route = resblock.dw_route(shape, c_out, dtype)
         label = dict(shape="x".join(map(str, shape)), c_out=c_out, dtype=str(dtype).split(".")[-1])
 
         before = dict(resblock.DX_ROUTE_LAUNCHES)
@@ -380,16 +399,20 @@ def phase_kernels(gen) -> dict:
         check(bad == 0, f"reflect_conv3x3_dx {shape} {dtype}: {bad} values over tolerance")
         check(torch.equal(dx, dx2), f"reflect_conv3x3_dx {shape} {dtype}: two runs differ")
 
+        before = dict(resblock.DW_ROUTE_LAUNCHES)
         dw = resblock.reflect_conv3x3_dw(x, dy)
         dw2 = resblock.reflect_conv3x3_dw(x, dy)
         torch.cuda.synchronize()
+        check(resblock.DW_ROUTE_LAUNCHES[dw_route] - before[dw_route] == 2,
+              f"dw {shape} {dtype}: not launched on {dw_route}")
         r = resblock.reflect_conv3x3_dw_reference(x, dy)
         check(dw.dtype == torch.float32 and dw.shape == r.shape, f"dw {shape} {dtype}: bad output")
         # float32 sums over N*H*W products in another order
         d = (dw - r).abs()
         rel = float(d.max() / r.abs().max())
         errs[("dw", shape, dtype)] = float(d.max())
-        phase("kernel", name="reflect_conv3x3_dw", **label, max_abs_err=f"{d.max().item():.3e}",
+        phase("kernel", name="reflect_conv3x3_dw", route=dw_route, **label,
+              max_abs_err=f"{d.max().item():.3e}",
               rel_to_max=f"{rel:.3e}", bitwise_repeatable=bool(torch.equal(dw, dw2)))
         check(rel <= 1e-4, f"reflect_conv3x3_dw {shape} {dtype}: {rel} of max over 1e-4")
         check(torch.equal(dw, dw2), f"reflect_conv3x3_dw {shape} {dtype}: two runs differ")
@@ -485,16 +508,16 @@ def phase_train(rng, g_tree, d_tree):
     reset_counts(resblock)
     r1_values = []
     for photos, monets in batches:
-        before, routes = counts(resblock), dict(resblock.DX_ROUTE_LAUNCHES)
+        before, routes = counts(resblock), route_counts(resblock)
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
-        check_dx_routes(resblock, routes, 3 * TRUNK_CONVS, "flagship step")
+        check_grad_routes(resblock, routes, 3 * TRUNK_CONVS, "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
         r1_values.append(vals["r1"])
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
-              launches_fwd_dx_dw="/".join(map(str, step_counts)), dx_route="bf16_wgmma",
+              launches_fwd_dx_dw="/".join(map(str, step_counts)), dx_dw_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
         check(step_counts == want, f"step launched {step_counts} (fwd, dx, dw), want {want}")
@@ -587,15 +610,19 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
     from gan_variant_research_tpu_torch.ops.kernels import resblock
 
-    x, w, b = conv_inputs((TIME_BATCH, 64, 64, 256), 256, torch.bfloat16, gen)
-    conv_ms = {name: event_ms(lambda f=f: f(x, w, b), iters=10)
-               for name, f in (("kernel", resblock.reflect_conv3x3),
-                               ("plain", resblock.reflect_conv3x3_reference),
-                               ("cudnn_bf16", cudnn_conv))}
-    flop = 2 * 9 * TIME_BATCH * 64 * 64 * 256 * 256
-    phase("timing", op="reflect_conv3x3", shape=f"{TIME_BATCH}x64x64x256", dtype="bf16",
-          **{f"{k}_ms": f"{v:.4f}" for k, v in conv_ms.items()},
-          kernel_tflops=f"{flop / conv_ms['kernel'] / 1e9:.2f}")
+    # the forward at the served shape (batch 32) and at the train step's
+    # (batch 12), where its 54 launches a step run
+    conv_ms = {}
+    for shape in ((TIME_BATCH, 64, 64, 256), TRAIN_SHAPE):
+        x, w, b = conv_inputs(shape, 256, torch.bfloat16, gen)
+        conv_ms[shape[0]] = {name: event_ms(lambda f=f: f(x, w, b), iters=10)
+                             for name, f in (("kernel", resblock.reflect_conv3x3),
+                                             ("plain", resblock.reflect_conv3x3_reference),
+                                             ("cudnn_bf16", cudnn_conv))}
+        flop = 2 * 9 * int(np.prod(shape)) * 256
+        phase("timing", op="reflect_conv3x3", shape="x".join(map(str, shape)), dtype="bf16",
+              **{f"{k}_ms": f"{v:.4f}" for k, v in conv_ms[shape[0]].items()},
+              kernel_tflops=f"{flop / conv_ms[shape[0]]['kernel'] / 1e9:.2f}")
 
     x, w, _ = conv_inputs(TRAIN_SHAPE, 256, torch.bfloat16, gen)
     dy = torch.randn(TRAIN_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
@@ -630,6 +657,14 @@ def phase_timing(gen, rng, net, trainer, state, batches):
                              {"frame": "dx_frame_mma", "main": "dx_main_wgmma", "fold": "dx_fold"})
     phase("timing", op="reflect_conv3x3_dx_parts", shape="x".join(map(str, TRAIN_SHAPE)),
           dtype="bf16", route=resblock.dx_route(dy.shape, w.shape[2], dy.dtype),
+          **{f"{k}_us": f"{v:.2f}" for k, v in parts.items()},
+          main_tflops=f"{flop / parts['main'] / 1e6:.2f}")
+    # dw's kernels apart (its route for the trunk: the partials' wgmma pass,
+    # the ordered reduce)
+    parts = kernel_device_us(lambda: resblock.reflect_conv3x3_dw(x, dy), 10,
+                             {"main": "dw_partial_wgmma", "reduce": "dw_reduce"})
+    phase("timing", op="reflect_conv3x3_dw_parts", shape="x".join(map(str, TRAIN_SHAPE)),
+          dtype="bf16", route=resblock.dw_route(x.shape, dy.shape[3], x.dtype),
           **{f"{k}_us": f"{v:.2f}" for k, v in parts.items()},
           main_tflops=f"{flop / parts['main'] / 1e6:.2f}")
 
@@ -1057,11 +1092,11 @@ def phase_train_variant(rng, g_tree, d_tree):
     reset_counts(resblock)
     reset_attn_counts(sa)
     for photos, monets in batches:
-        before, routes = (*counts(resblock), *attn_counts(sa)), dict(resblock.DX_ROUTE_LAUNCHES)
+        before, routes = (*counts(resblock), *attn_counts(sa)), route_counts(resblock)
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
-        check_dx_routes(resblock, routes, 3 * TRUNK_CONVS, "variant step")
+        check_grad_routes(resblock, routes, 3 * TRUNK_CONVS, "variant step")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
@@ -1334,28 +1369,27 @@ def main() -> int:
     attn = phase_timing_variant(gen, rng, vnet, vtrainer, vstate, vbatches)
 
     bf16 = torch.bfloat16
-    conv_shape = (TIME_BATCH, 64, 64, 256)
-    conv_flops = {"fwd": 2 * 9 * int(np.prod(conv_shape)) * 256,
-                  "grad": 2 * 9 * int(np.prod(TRAIN_SHAPE)) * 256}
+    serve_shape = (TIME_BATCH, 64, 64, 256)
+    flops = lambda shape: 2 * 9 * int(np.prod(shape)) * 256
     act = lambda shape: int(np.prod(shape)) * 2
     w_bytes = 9 * 256 * 256 * 2
+    fwd_bound = lambda shape: bound_ms(flops(shape), 2 * act(shape) + w_bytes + 256 * 4,
+                                       PEAK_BF16_FLOPS)
     conv_bounds = {
-        "fwd": bound_ms(conv_flops["fwd"], 2 * act(conv_shape) + w_bytes + 256 * 4,
-                        PEAK_BF16_FLOPS),
-        "dx": bound_ms(conv_flops["grad"], 2 * act(TRAIN_SHAPE) + w_bytes, PEAK_BF16_FLOPS),
-        "dw": bound_ms(conv_flops["grad"], 2 * act(TRAIN_SHAPE) + 9 * 256 * 256 * 4,
+        "dx": bound_ms(flops(TRAIN_SHAPE), 2 * act(TRAIN_SHAPE) + w_bytes, PEAK_BF16_FLOPS),
+        "dw": bound_ms(flops(TRAIN_SHAPE), 2 * act(TRAIN_SHAPE) + 9 * 256 * 256 * 4,
                        PEAK_BF16_FLOPS)}
     attn_bounds = {k: bound_ms(attention_flops(ATTN_SHAPE)[k], attention_bytes(ATTN_SHAPE, 2)[k],
                                PEAK_BF16_FLOPS) for k in ("fwd", "dkv", "dq")}
 
-    def row(name, replaces, launches, err, ms, plain_ms, bound, library_ms, covers=None):
+    def row(name, replaces, launches, err, ms, plain_ms, bound, library_ms, covers=None, **extra):
         # library_covers: the rows whose work library_ms does, all in one call
         # (SDPA's backward computes dK, dV and dQ: compare it with the pair)
         return {"name": name, "route": "cuda",
                 "source": f"gan_variant_research_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms, "library_covers": covers or [name]}
+                "library_ms": library_ms, "library_covers": covers or [name], **extra}
 
     resblock_py = "gan_variant_research_tpu/ops/pallas/resblock.py:{}"
     flash_py = ("jax/experimental/pallas/ops/tpu/flash_attention.py:{} "
@@ -1363,9 +1397,16 @@ def main() -> int:
     times = attn["times"]
     attn_bwd = ["spatial_attention_dkv", "spatial_attention_dq"]
     print(json.dumps({"kernels": [
+        # the times, bound and library time at the train step's batch 12,
+        # where its `launches` run; the served batch of 32 beside them
         row("reflect_conv3x3", resblock_py.format(156), train_launches[0],
-            errs[("fwd", CONV_SHAPE, bf16)], conv_ms["kernel"], conv_ms["plain"],
-            conv_bounds["fwd"], conv_ms["cudnn_bf16"]),
+            errs[("fwd", CONV_SHAPE, bf16)], conv_ms[TRAIN_SHAPE[0]]["kernel"],
+            conv_ms[TRAIN_SHAPE[0]]["plain"], fwd_bound(TRAIN_SHAPE),
+            conv_ms[TRAIN_SHAPE[0]]["cudnn_bf16"], shape=list(TRAIN_SHAPE),
+            serve_shape=list(serve_shape), serve_launches=serve_launches,
+            serve_ms=conv_ms[TIME_BATCH]["kernel"], serve_plain_ms=conv_ms[TIME_BATCH]["plain"],
+            serve_bound_ms=fwd_bound(serve_shape)[0],
+            serve_library_ms=conv_ms[TIME_BATCH]["cudnn_bf16"]),
         row("reflect_conv3x3_dx", resblock_py.format(229), train_launches[1],
             errs[("dx", TRAIN_SHAPE, bf16)], grad_ms["dx"][0], grad_ms["dx"][1],
             conv_bounds["dx"], grad_ms["dx"][2]),

@@ -13,37 +13,52 @@
 //   are float32. The result is bitwise the same from run to run.
 //
 // What bounds it. Nine (N*H*W, Cin)^T (N*H*W, Cout) products: at B = 12 the
-// trunk reduces over 49,152 pixels into 589,824 float32 outputs, ~58 GFLOP,
-// compute-bound on the tensor cores. The TPU kernel carries the sum across
-// its sequential grid; on Hopper blocks run in no order, and the outputs
-// alone give only 48 blocks of 64x64 channels x 3 taps, too few for 132 SMs.
+// trunk reduces over 49,152 pixels into 589,824 float32 outputs, ~58 GFLOP
+// against ~53 MB in and out: operation-bound on the tensor cores (0.059 ms
+// at 989 TFLOP/s). The TPU kernel carries the sum across its sequential
+// grid; on Hopper blocks run in no order, and the outputs alone give only 12
+// blocks of 128 x 128 channels x 3 taps, too few for 132 SMs.
 //
-// What this design does about that. The pixel reduction is split:
-//   1. dw_partial: block (ci tile of 64, co tile of 64, kernel row ky, split
-//      s) walks its share of the image-row segments (64 pixels of one row)
-//      in order, and accumulates the three taps (ky, 0..2) of its tile in
-//      registers. Per segment it stages dy [64 px x 64 co] and the reflected
-//      x row h+ky-1 [66 px x 64 ci] (the halo of one pixel each side, so the
-//      pad exists only in shared memory). bf16: mma.sync m16n8k16 with
-//      float32 accumulation, M = ci, N = co, K = pixels; both operands are
-//      staged in their NHWC layout by cp.async 16-byte copies, two segments
-//      deep, and ldmatrix.trans turns them into the k-major fragments; each
-//      warp owns 16 ci x 32 co x 3 taps. float32: FMA (never TF32), each
-//      thread 4 ci x 4 co x 3 taps. The block writes its float32 partial
-//      sums to a scratch buffer (S, 3, 3, Cin, Cout).
-//   2. dw_reduce: dw = the sum of the S partials in order s = 0..S-1.
-// No atomics, so the sum's order is fixed and the result deterministic. The
-// wrapper picks S so that pass 1 has a few waves of blocks. wgmma, TMA and
-// pipelining come later.
+// What this design does about that. The pixel reduction is split into S
+// shares of the image-row segments (64 pixels of one row), S chosen by the
+// caller so that the blocks fill the SMs; each block writes its float32
+// partial sums to a scratch buffer (S, 3, 3, Cin, Cout), and dw_reduce adds
+// the S partials in the order s = 0..S-1. No atomics, so the sum's order is
+// fixed and the result deterministic. The caller picks one of two routes
+// (the `route` argument):
+//
+//   0  float32 on FMA (never TF32): block (64 ci, 64 co, kernel row ky,
+//      share s), each thread 4 ci x 4 co x 3 taps; per segment it stages dy
+//      [64 px x 64 co] and the reflected x row h+ky-1 [66 px x 64 ci].
+//   1  bf16 on wgmma, for Cin and Cout multiples of 8 and 16-byte aligned
+//      pointers (the caller zero-pads other channel counts). Block (128 ci,
+//      128 co, ky, s): M = ci, N = co, K = pixels, one K-stage a segment. One
+//      producer thread (setmaxnreg 24) fills a ring of W_STAGES K-stages on
+//      full and empty mbarriers by TMA over 4-D tensor maps (C, W, H, N): dy's
+//      segment, 64 px x 128 co in two 64-channel boxes, and x's row hr =
+//      reflect(h + ky - 1) from column w0 - 1 to w0 + 64, 66 px x 128 ci, in
+//      the 128-byte swizzle; the producer picks hr, so the row reflect costs
+//      nothing, and TMA's zero fill covers columns past W (dy is 0 there too).
+//      Two consumer warpgroups (setmaxnreg 240), 64 ci each, hold a 64 x 128
+//      float32 accumulator for each of the three taps kx (192 registers a
+//      thread) and run wgmma.m64n128k16 with dy as the MN-major B operand from
+//      shared memory and x as the A operand from registers: ldmatrix.trans
+//      reads x's staged pixels at the offset kx, each lane giving its own
+//      pixel's address, so the column reflect is in the address (column -1
+//      reads column 1, column W reads column W - 2) and the three taps share
+//      one staged row. Each wgmma is its own group and takes its A fragment
+//      from a ring of four, reloaded once the product that read it retired.
+//      At (12, 64, 64, 256): 12 output tiles x S = 11 = 132 blocks, one wave.
 
+#include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int CI_T = 64;      // input channels per block
-constexpr int CO_T = 64;      // output channels per block
+constexpr int CI_T = 64;      // float32 route: input channels per block
+constexpr int CO_T = 64;      // float32 route: output channels per block
 constexpr int SEG = 64;       // pixels of one image row per segment
 constexpr int XQ = SEG + 2;   // x halo columns
 constexpr int THREADS = 256;
@@ -142,168 +157,271 @@ dw_partial_f32(const float* __restrict__ x, const float* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on mma.sync m16n8k16: A = x^T (ci x pixels), B = dy (pixels x co)
+// bf16 on wgmma. Shared memory: a ring of W_STAGES K-stages, each dy's two
+// 64-channel boxes (64 rows of 128 bytes) then x's two (66 rows of 128 bytes,
+// each box from a 1024-byte boundary), all in the 128-byte swizzle that TMA
+// writes (the 16-byte chunk bits of an address XOR the bits just above 128
+// bytes); then the full and empty barriers.
 
-constexpr int KS = 72;   // padded bf16 stride of a pixel's channel row in shared memory
+constexpr int W_CI = 128;                  // input channels per block: two consumers of 64
+constexpr int W_CO = 128;                  // output channels per block
+constexpr int W_STAGES = 6;
+constexpr int W_THREADS = 384;             // producer + two consumers
+constexpr int W_CONSUMERS = 256;
+constexpr int W_DYBOX = SEG * 128;         // 64 pixels x 64 channels
+constexpr int W_XBOX = 9 * 1024;           // 66 pixels x 64 channels (8448 bytes), to 1024
+constexpr int W_XOFF = 2 * W_DYBOX;
+constexpr int W_STAGE = W_XOFF + 2 * W_XBOX;
+constexpr int W_BAR = W_STAGES * W_STAGE;
+constexpr int W_SMEM = W_BAR + 16 * W_STAGES + 1024;        // + slack to align the base
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Until the phase of this parity has completed. (No trap on a long wait: one
+// trap block shared by the producer and the consumers makes their paths
+// meet, and ptxas then holds the consumers to the entry's 168 registers.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// One box of a 4-D tensor map (coordinates innermost first) to shared
+// memory, its bytes counted on `bar`; what lies outside the tensor reads as
+// zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
 }
 
 // Four transposed 8x8 bf16 matrices; lane l gives the address of row l % 8 of
 // matrix l / 8. Stored S[k][m], each register holds (S[2t][g], S[2t+1][g]) of
-// its matrix: the A (row-major m x k) or B (k x n, "col") fragment of mma.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+// its matrix: with matrices (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7),
+// (k 8-15, m 8-15) that is one warp's A fragment of a wgmma (rows 16w..16w+15).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr)
+               : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d (64 x 128, float32) += a (64 x 16, bf16 registers) b (16 x 128, shared,
+// MN-major: two 64-column boxes LBO apart).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Both operands are staged in their global layout, [pixel][channel]: x's
-// reflected row segment (66 pixels, the halo of one each side) and dy's (64
-// pixels), two stages deep. vec (Cin, Cout multiples of 8, 16-byte aligned
-// tensors): cp.async 16-byte copies, the next segment's in flight while this
-// one computes; otherwise element loads and stores.
-__global__ void __launch_bounds__(THREADS)
-dw_partial_bf16(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ dy, float* __restrict__ part,
-                int N, int H, int W, int Cin, int Cout, int S, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][XQ * KS];     // [q][ci]
-  __shared__ __align__(16) __nv_bfloat16 dys[2][SEG * KS];   // [p][co]
+// The shared address of the 16-byte chunk `chunk` (8 input channels) of the
+// staged x pixel in slot q (slot q holds column w0 - 1 + q; the 128-byte
+// swizzle XORs the chunk with the slot's low three bits), with the column
+// reflect: slot qlo (column -1) reads slot 2 (column 1), slot qhi (column W)
+// reads slot qhi - 2 (column W - 2).
+__device__ __forceinline__ uint32_t x_chunk(uint32_t xt, int q, int qlo, int qhi, int chunk) {
+  q = q == qlo ? 2 : q == qhi ? qhi - 2 : q;
+  return xt + q * 128 + ((chunk ^ (q & 7)) << 4);
+}
 
-  const int ci0 = blockIdx.x * CI_T;
-  const int co0 = blockIdx.y * CO_T;
-  const int ky = blockIdx.z % 3;
-  const int s = blockIdx.z / 3;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = warp % 4;   // 16 ci each
-  const int wn = warp / 4;   // 32 co each
-  const int segs_w = (W + SEG - 1) / SEG;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  // ldmatrix: the row this lane addresses, and its 8x8 matrix's offsets
-  const int lr = lane % 8;
-  const int lk = ((lane / 8) % 2) * 8;   // A: matrices 1, 3 at m + 8; B: at k + 8
-  const int lm = (lane / 16) * 8;        // A: matrices 2, 3 at k + 8; B: at n + 8
-
-  float acc[3][4][4];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[k][j][r] = 0.f;
-
-  long long lo, hi;
-  split_range((long long)N * H * segs_w, s, S, &lo, &hi);
-
-  auto stage = [&](long long seg, int buf) {
-    const int w0 = (int)(seg % segs_w) * SEG;
-    const int h = (int)((seg / segs_w) % H);
-    const int n = (int)(seg / ((long long)segs_w * H));
-    const int hr = reflect_index(h + ky - 1, H);
-    const __nv_bfloat16* xrow = x + ((size_t)n * H + hr) * W * Cin;
-    const __nv_bfloat16* dyrow = dy + ((size_t)n * H + h) * W * Cout;
-    if (vec) {
-      for (int i = tid; i < XQ * (CI_T / 8); i += THREADS) {
-        const int q = i / (CI_T / 8), c = (i % (CI_T / 8)) * 8;
-        const int gx = reflect_index(w0 - 1 + q, W);
-        const bool ok = ci0 + c < Cin;
-        cp_async16(&xs[buf][q * KS + c], ok ? xrow + (size_t)gx * Cin + ci0 + c : x, ok);
-      }
-      for (int i = tid; i < SEG * (CO_T / 8); i += THREADS) {
-        const int p = i / (CO_T / 8), c = (i % (CO_T / 8)) * 8;
-        const bool ok = w0 + p < W && co0 + c < Cout;
-        cp_async16(&dys[buf][p * KS + c], ok ? dyrow + (size_t)(w0 + p) * Cout + co0 + c : dy, ok);
-      }
-    } else {
-      for (int i = tid; i < XQ * CI_T; i += THREADS) {
-        const int q = i / CI_T, c = i % CI_T;
-        const int gx = reflect_index(w0 - 1 + q, W);
-        xs[buf][q * KS + c] = ci0 + c < Cin ? xrow[(size_t)gx * Cin + ci0 + c] : zero;
-      }
-      for (int i = tid; i < SEG * CO_T; i += THREADS) {
-        const int p = i / CO_T, c = i % CO_T;
-        dys[buf][p * KS + c] = (w0 + p < W && co0 + c < Cout)
-                                   ? dyrow[(size_t)(w0 + p) * Cout + co0 + c] : zero;
-      }
-    }
-  };
-
-  if (lo < hi) stage(lo, 0);
-  cp_async_commit();
-  for (long long seg = lo; seg < hi; ++seg) {
-    const int buf = (int)((seg - lo) & 1);
-    if (seg + 1 < hi) stage(seg + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();   // this segment's copies have landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SEG / 16; ++kk) {
-      // B[k][n] = dy[pixel kk*16 + k][co wn*32 + n]: n-tiles (0, 1), (2, 3)
-      uint32_t b[4][2];
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &dys[buf][(kk * 16 + lk + lr) * KS + wn * 32 + jp * 16 + lm]);
-        b[2 * jp][0] = r[0];
-        b[2 * jp][1] = r[1];
-        b[2 * jp + 1][0] = r[2];
-        b[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        // A[m][k] = x[pixel kk*16 + k + kx - 1 of the row][ci wm*16 + m]
-        uint32_t a[4];
-        ldsm_x4_trans(a, &xs[buf][(kk * 16 + kx + lm + lr) * KS + wm * 16 + lk]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[kx][j], a, b[j][0], b[j][1]);
-      }
-    }
-    __syncthreads();   // the buffer is refilled next iteration
-  }
-
-  // C fragment: c0, c1 at ci row g, co columns 2t, 2t+1; c2, c3 at row g + 8
-  float* ps = part + (size_t)s * 9 * Cin * Cout;
+// One consumer warpgroup: input channels ci0 + 64 cw .. + 63 of the block,
+// all 128 output channels, the three taps of kernel row ky, over the
+// segments [lo, hi). Segment j is read from ring stage j % W_STAGES once its
+// full barrier completes, and released on its empty barrier once the last
+// wgmma that reads it has retired (one k16 step into the next segment).
+// Each wgmma is its own group, its A fragment one of a ring of four, so that
+// a fragment is reloaded only once the product that read it has retired
+// while three products stay in flight (two sets of the three taps'
+// fragments, 24 registers beside the accumulators' 192, made ptxas
+// serialise every wgmma: C7512).
+// Accumulator layout (wgmma's): warp w of the group holds input channels 16w
+// + g and 16w + g + 8 (g = lane / 4), register 4c + e output channel 8c + 2t
+// + (e & 1) (t = lane % 4) of row g + 8 (e >> 1).
+__device__ __forceinline__ void dw_consume(uint32_t base, uint32_t full, uint32_t empty,
+                                           long long lo, long long hi, int segs_w, int W,
+                                           int cw, int ky, int ci0, int co0,
+                                           float* __restrict__ part_s, int Cin, int Cout) {
+  const int lane = threadIdx.x % 32;
+  const int wl = (threadIdx.x / 32) % 4;
+  const int mat = lane >> 3;                          // this lane's ldmatrix matrix
+  const int krow = (mat >> 1) * 8 + (lane & 7);       // its pixel within a k16 step
+  const int chunk = 2 * wl + (mat & 1);               // its 8 input channels
+  float acc[3][64];
 #pragma unroll
   for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 64; ++i) acc[kx][i] = 0.f;
+  uint32_t a[4][4];   // a ring of A fragments, one a product
+
+  for (long long seg = lo; seg < hi; ++seg) {
+    const int j = (int)(seg - lo);
+    const int s = j % W_STAGES;
+    const int w0 = (int)(seg % segs_w) * SEG;
+    const int qlo = w0 == 0 ? 0 : -1, qhi = W - w0 + 1;
+    mbar_wait(full + 8 * s, (j / W_STAGES) & 1);
+    const uint32_t dyt = base + s * W_STAGE;
+    const uint32_t xt = dyt + W_XOFF + cw * W_XBOX;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ci = ci0 + wm * 16 + g + (r >= 2 ? 8 : 0);
-        const int co = co0 + wn * 32 + j * 8 + 2 * t + (r & 1);
-        if (ci < Cin && co < Cout)
-          ps[((size_t)(ky * 3 + kx) * Cin + ci) * Cout + co] = acc[kx][j][r];
+    for (int kk = 0; kk < SEG / 16; ++kk) {
+      // B: dy's pixels 16kk..16kk+15 (K) x 128 output channels (N), MN-major
+      const uint64_t db = make_desc(dyt + kk * 2048, W_DYBOX, 1024, 1);
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        // product 12j + 3kk + kx; 12 a segment, so its slot is static
+        const int r = (3 * kk + kx) % 4;
+        wgmma_wait<3>();   // product 12j + 3kk + kx - 4, the last to read a[r], has retired
+        // and with it (at kk 1, kx 0) the last product of segment j - 1
+        if (kk == 1 && kx == 0 && j > 0) mbar_arrive(empty + 8 * ((j - 1) % W_STAGES));
+        ldsm_x4_trans(a[r], x_chunk(xt, kk * 16 + kx + krow, qlo, qhi, chunk));
+        wgmma_fence();
+        wgmma_rs_n128(acc[kx], a[r], db);
+        wgmma_commit();
       }
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) reg_fence(acc[kx][i]);
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    float* dst = part_s + (size_t)(ky * 3 + kx) * Cin * Cout;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ci = ci0 + cw * 64 + wl * 16 + g + 8 * h;
+      if (ci >= Cin) continue;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int co = co0 + 8 * c + 2 * t;
+        if (co < Cout)   // Cout is a multiple of 8, so co + 1 < Cout too
+          *reinterpret_cast<float2*>(dst + (size_t)ci * Cout + co) =
+              make_float2(acc[kx][4 * c + 2 * h], acc[kx][4 * c + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// x comes in through a 4-D tensor map over (Cin, W, H, N) in boxes of (64, 66,
+// 1, 1), dy through one over (Cout, W, H, N) in boxes of (64, 64, 1, 1).
+// Block (ci tile, co tile, 3 s + ky).
+__global__ void __launch_bounds__(W_THREADS, 1)
+dw_partial_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                 float* __restrict__ part, int N, int H, int W, int Cin, int Cout, int S) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + W_BAR, empty = full + 8 * W_STAGES;
+  const int ci0 = blockIdx.x * W_CI, co0 = blockIdx.y * W_CO;
+  const int ky = blockIdx.z % 3, s = blockIdx.z / 3;
+  const int segs_w = (W + SEG - 1) / SEG;
+  long long lo, hi;
+  split_range((long long)N * H * segs_w, s, S, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < W_STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, W_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The two roles' paths must never meet again (not even in a shared trap
+  // block), or setmaxnreg no longer sets the consumers' register budget.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: segment j waits until the consumers have released j - W_STAGES
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      // boxes wholly past Cin or Cout are not loaded: they would only feed
+      // accumulator rows or columns that are never stored
+      const bool x2 = ci0 + 64 < Cin, dy2 = co0 + 64 < Cout;
+      const int bytes = (dy2 ? 2 : 1) * W_DYBOX + (x2 ? 2 : 1) * XQ * 128;
+      for (long long seg = lo; seg < hi; ++seg) {
+        const int j = (int)(seg - lo), st = j % W_STAGES;
+        const int w0 = (int)(seg % segs_w) * SEG;
+        const int h = (int)((seg / segs_w) % H);
+        const int n = (int)(seg / ((long long)segs_w * H));
+        const int hr = reflect_index(h + ky - 1, H);
+        const uint32_t stage = base + st * W_STAGE, bar = full + 8 * st;
+        mbar_wait(empty + 8 * st, ((j / W_STAGES) & 1) ^ 1);
+        mbar_expect_tx(bar, bytes);
+        tma_load_4d(stage, &tdy, co0, w0, h, n, bar);
+        if (dy2) tma_load_4d(stage + W_DYBOX, &tdy, co0 + 64, w0, h, n, bar);
+        tma_load_4d(stage + W_XOFF, &tx, ci0, w0 - 1, hr, n, bar);
+        if (x2) tma_load_4d(stage + W_XOFF + W_XBOX, &tx, ci0 + 64, w0 - 1, hr, n, bar);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    dw_consume(base, full, empty, lo, hi, segs_w, W, wg - 1, ky, ci0, co0,
+               part + (size_t)s * 9 * Cin * Cout, Cin, Cout);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -317,29 +435,96 @@ __global__ void dw_reduce(const float* __restrict__ part, float* __restrict__ dw
   dw[i] = v;
 }
 
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links no libcuda; null if the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D tensor map over a contiguous bf16 NHWC tensor, dims (C, W, H, N), in
+// boxes of `box`, in the 128-byte swizzle; what lies outside the tensor reads
+// as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int C,
+                const cuuint32_t* box) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {2ull * C, 2ull * C * W, 2ull * C * W * H};   // bytes
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* x, const void* dy, float* part, int N, int H, int W, int Cin,
+                 int Cout, int S, cudaStream_t st) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16) == 0;
+  if (Cin % 8 || Cout % 8 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tdy;
+  const cuuint32_t x_box[4] = {64, XQ, 1, 1};
+  const cuuint32_t dy_box[4] = {64, SEG, 1, 1};
+  if (!tensor_map(&tx, x, N, H, W, Cin, x_box) || !tensor_map(&tdy, dy, N, H, W, Cout, dy_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // per device, once: the kernel's shared memory
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidValue);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(dw_partial_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               W_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const dim3 grid((Cin + W_CI - 1) / W_CI, (Cout + W_CO - 1) / W_CO, 3 * S);
+  dw_partial_wgmma<<<grid, W_THREADS, W_SMEM, st>>>(tx, tdy, part, N, H, W, Cin, Cout, S);
+  return static_cast<int>(cudaSuccess);
+}
+
 }  // namespace
 
-// x (N,H,W,Cin), dy (N,H,W,Cout) in one dtype (0 = float32, 1 = bfloat16);
+// x (N,H,W,Cin), dy (N,H,W,Cout) in one dtype; route: 0 float32 (FMA), 1
+// bf16 (wgmma + TMA; Cin, Cout multiples of 8, 16-byte aligned pointers).
 // part: float32 scratch of S * 9 * Cin * Cout; dw (3,3,Cin,Cout) float32.
-// Returns cudaGetLastError() after the two launches (0 = cudaSuccess); both
+// Returns a cudaError_t after the two launches (0 = cudaSuccess,
+// cudaErrorInvalidValue for a shape or route the call does not take); both
 // are asynchronous on `stream`.
 extern "C" int reflect_conv3x3_dw(const void* x, const void* dy, void* part,
                                   void* dw, int N, int H, int W, int Cin,
-                                  int Cout, int S, int dtype, void* stream) {
+                                  int Cout, int S, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, 3 * S);
+  if (S < 1 || 3LL * S > 65535 || N < 1 || H < 2 || W < 2 || Cin < 1 || Cout < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
-  if (dtype == 0) {
+  if (route == 0) {
+    const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, 3 * S);
     dw_partial_f32<<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), p, N, H, W, Cin, Cout, S);
-  } else if (dtype == 1) {
-    const bool aligned =
-        ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16) == 0;
-    const int vec = (Cin % 8 == 0 && Cout % 8 == 0 && aligned) ? 1 : 0;
-    dw_partial_bf16<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), p, N, H,
-        W, Cin, Cout, S, vec);
+  } else if (route == 1) {
+    const int err = launch_wgmma(x, dy, p, N, H, W, Cin, Cout, S, st);
+    if (err != 0) return err;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

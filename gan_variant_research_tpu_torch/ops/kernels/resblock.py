@@ -13,14 +13,15 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
   reflect_conv3x3_dx.cu`` on CUDA (one of the routes ``DX_ROUTES``, picked
   by ``dx_route``), ``reflect_conv3x3_dx_reference`` on CPU.
 - ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
-  reflect_conv3x3_dw.cu`` on CUDA, ``reflect_conv3x3_dw_reference`` on CPU.
+  reflect_conv3x3_dw.cu`` on CUDA (one of the routes ``DW_ROUTES``, picked
+  by ``dw_route``), ``reflect_conv3x3_dw_reference`` on CPU.
 - ``fused_resblock``: conv -> instance norm -> ReLU -> conv -> instance norm
   -> residual add, NHWC.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
 versions serve CPU tensors. ``LAUNCHES``, ``DX_LAUNCHES`` and
-``DW_LAUNCHES`` count the kernel launches, ``DX_ROUTE_LAUNCHES`` the ``dx``
-launches by route.
+``DW_LAUNCHES`` count the kernel launches, ``DX_ROUTE_LAUNCHES`` and
+``DW_ROUTE_LAUNCHES`` the ``dx`` and ``dw`` launches by route.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ DW_LAUNCHES = 0
 # FMA, bf16 on wgmma + TMA.
 DX_ROUTES = ("f32_fma", "bf16_wgmma")
 DX_ROUTE_LAUNCHES = dict.fromkeys(DX_ROUTES, 0)
+# The dw kernel's routes, likewise.
+DW_ROUTES = ("f32_fma", "bf16_wgmma")
+DW_ROUTE_LAUNCHES = dict.fromkeys(DW_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Z_MAX = 65535
@@ -200,16 +204,20 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     return y
 
 
+def _route(dtype: torch.dtype, what: str) -> str:
+    if dtype == torch.float32:
+        return "f32_fma"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{what} must be float32 or bfloat16, got {dtype}")
+    return "bf16_wgmma"
+
+
 def dx_route(dy_shape, c_in: int, dtype: torch.dtype) -> str:
     """The route of ``csrc/reflect_conv3x3_dx.cu`` for a cotangent of
     ``dy_shape`` (N, H, W, Cout) and ``dtype`` with ``c_in`` input channels:
     float32 on FMA, bf16 on wgmma + TMA (channel counts that are not
     multiples of 8 are zero-padded to them, ``pad_dx_channels``)."""
-    if dtype == torch.float32:
-        return "f32_fma"
-    if dtype != torch.bfloat16:
-        raise TypeError(f"dy must be float32 or bfloat16, got {dtype}")
-    return "bf16_wgmma"
+    return _route(dtype, "dy")
 
 
 def pad_dx_channels(dy: torch.Tensor, w: torch.Tensor):
@@ -266,14 +274,35 @@ def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return dx if c_in_k == c_in else dx[..., :c_in].contiguous()
 
 
-def dw_splits(x_shape, c_out: int, sm_count: int) -> int:
-    """How many parts the dw kernel splits the N*H*W reduction into: enough
-    blocks for about four waves over ``sm_count`` SMs, at most one image-row
-    segment (64 pixels) per part."""
+def dw_route(x_shape, c_out: int, dtype: torch.dtype) -> str:
+    """The route of ``csrc/reflect_conv3x3_dw.cu`` for an input of
+    ``x_shape`` (N, H, W, Cin) and ``dtype`` with ``c_out`` output channels:
+    float32 on FMA, bf16 on wgmma + TMA (channel counts that are not
+    multiples of 8 are zero-padded to them, ``pad_dw_channels``)."""
+    return _route(dtype, "x")
+
+
+def pad_dw_channels(x: torch.Tensor, dy: torch.Tensor):
+    """x (N, H, W, Cin) and dy (N, H, W, Cout) zero-padded so that Cin and
+    Cout are multiples of 8, as the wgmma route's tensor maps need (16-byte
+    rows); unpadded tensors come back as they are. The zeros add nothing to
+    the float32 sums, so dw[:, :, :Cin, :Cout] of the padded pair is dw."""
+    p_in, p_out = -x.shape[3] % 8, -dy.shape[3] % 8
+    return (F.pad(x, (0, p_in)) if p_in else x), (F.pad(dy, (0, p_out)) if p_out else dy)
+
+
+def dw_splits(x_shape, c_out: int, sm_count: int, route: str) -> int:
+    """How many parts the dw kernel splits the N*H*W reduction into, at most
+    one image-row segment (64 pixels) per part. bf16 (blocks of 128 x 128
+    channels x 3 taps, one an SM): as many as fit in one wave over
+    ``sm_count`` SMs; float32 (blocks of 64 x 64 channels): about four
+    waves."""
     n, h, width, c_in = x_shape
     segments = n * h * -(-width // 64)
-    blocks_per_split = 3 * -(-c_in // 64) * -(-c_out // 64)
-    want = -(-4 * sm_count // blocks_per_split)
+    if route == "bf16_wgmma":
+        want = sm_count // (3 * -(-c_in // 128) * -(-c_out // 128))
+    else:
+        want = -(-4 * sm_count // (3 * -(-c_in // 64) * -(-c_out // 64)))
     return max(1, min(segments, want, _GRID_Z_MAX // 3))
 
 
@@ -281,28 +310,37 @@ def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight gradient of ``reflect_conv3x3`` for the input ``x`` and the
     cotangent ``dy`` (same dtype); returns (3, 3, Cin, Cout) float32, the
     same bits from run to run. On CUDA it launches
-    ``csrc/reflect_conv3x3_dw.cu``; on the CPU it is
-    ``reflect_conv3x3_dw_reference``."""
+    ``csrc/reflect_conv3x3_dw.cu`` on the current stream, on the route
+    ``dw_route`` picks; on the CPU it is ``reflect_conv3x3_dw_reference``."""
     global DW_LAUNCHES
     _check_dw(x, dy)
     if x.device.type == "cpu":
         return reflect_conv3x3_dw_reference(x, dy)
     _check_cuda(x)
     _check_cuda(dy)
-    n, h, width, c_in = x.shape
-    c_out = dy.shape[3]
-    splits = dw_splits(x.shape, c_out,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count)
-    part = torch.empty((splits, 3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+    c_in, c_out = x.shape[3], dy.shape[3]
+    route = dw_route(x.shape, c_out, x.dtype)
+    if route == "bf16_wgmma":
+        # channels of 8; the tensor maps need 16-byte aligned bases
+        x, dy = pad_dw_channels(x, dy)
+        x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
+    n, h, width, c_in_k = x.shape
+    c_out_k = dy.shape[3]
+    splits = dw_splits(x.shape, c_out_k,
+                       torch.cuda.get_device_properties(x.device).multi_processor_count, route)
+    part = torch.empty((splits, 3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
     fn = _dw_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                 n, h, width, c_in, c_out, splits, _DTYPE_CODES[x.dtype],
+                 n, h, width, c_in_k, c_out_k, splits, DW_ROUTES.index(route),
                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "reflect_conv3x3_dw")
+    _raise_on(err, f"reflect_conv3x3_dw ({route})")
     DW_LAUNCHES += 1
-    return dw
+    DW_ROUTE_LAUNCHES[route] += 1
+    if (c_in_k, c_out_k) == (c_in, c_out):
+        return dw
+    return dw[:, :, :c_in, :c_out].contiguous()
 
 
 class _ReflectConv3x3(torch.autograd.Function):

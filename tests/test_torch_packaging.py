@@ -192,18 +192,45 @@ def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
 
         assert re.search(rf"route == {resblock.DX_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
                          source)
+    if kernel == "reflect_conv3x3_dw":
+        # likewise the dw kernel's last int, an index into resblock.DW_ROUTES
+        source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
+        assert re.search(r"int Cout, int S, int route, void\* stream\)", source)
+        from gan_variant_research_tpu_torch.ops.kernels import resblock
+
+        assert re.search(rf"route == {resblock.DW_ROUTES.index('f32_fma')}\) {{\s*const dim3 grid"
+                         rf"[^}}]*dw_partial_f32", source)
+        assert re.search(rf"route == {resblock.DW_ROUTES.index('bf16_wgmma')}\) {{\s*const int err = "
+                         "launch_wgmma", source)
+
+
+def _probe(op: str):
+    spec = importlib.util.spec_from_file_location(f"probe_torch_{op}",
+                                                  REPO_ROOT / "scripts" / f"probe_torch_{op}.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe, (REPO_ROOT / PKG / "csrc" / f"reflect_conv3x3_{op}.cu").read_text()
 
 
 def test_dx_probe_variants_apply_to_the_kernel_source():
     """scripts/probe_torch_dx.py builds its variants of the dx kernel by text
     edits of csrc/reflect_conv3x3_dx.cu: each edit must still find its text,
     so that an edit of the kernel that breaks the probe shows here."""
-    spec = importlib.util.spec_from_file_location("probe_torch_dx",
-                                                  REPO_ROOT / "scripts" / "probe_torch_dx.py")
-    probe = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probe)
-    source = (REPO_ROOT / PKG / "csrc" / "reflect_conv3x3_dx.cu").read_text()
+    probe, source = _probe("dx")
     assert probe.variant_source(source, "base") == source
     for variant in [*probe.EDITS, *probe.DEFAULT]:
         edited = probe.variant_source(source, variant)
         assert variant == "base" or edited != source
+
+
+def test_dw_probe_variants_apply_to_the_kernel_source():
+    """The same for scripts/probe_torch_dw.py and csrc/reflect_conv3x3_dw.cu:
+    every edit finds its text exactly once, so that it changes the wgmma
+    route and nothing else."""
+    probe, source = _probe("dw")
+    assert probe.variant_source(source, "base") == source
+    for variant in [*probe.EDITS, *probe.DEFAULT]:
+        edited = probe.variant_source(source, variant)
+        assert variant == "base" or edited != source
+        for old, _ in probe.EDITS[variant.split("+")[0]]:
+            assert source.count(old) == 1, (variant, old)

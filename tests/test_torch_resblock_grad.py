@@ -201,13 +201,19 @@ def test_gradient_wrappers_reject_what_the_kernels_do_not_take(bad):
             rb.reflect_conv3x3_dw(x, dy[:, :3])
 
 
-@pytest.mark.parametrize("shape,c_out,sms,want", [
-    ((12, 64, 64, 256), 256, 132, 11),   # the trunk at batch 12: 48 blocks a split
-    ((1, 2, 3, 8), 8, 132, 2),           # capped at one 64-pixel row segment a split
-    ((4096, 64, 64, 256), 256, 132, 11),
+@pytest.mark.parametrize("shape,c_out,sms,route,want", [
+    # the trunk at batch 12: 12 blocks of 128 x 128 channels x 3 taps a split,
+    # 132 blocks, one wave
+    ((12, 64, 64, 256), 256, 132, "bf16_wgmma", 11),
+    ((1, 2, 3, 8), 8, 132, "bf16_wgmma", 2),     # capped at one 64-pixel row segment a split
+    ((4096, 64, 64, 256), 256, 132, "bf16_wgmma", 11),
+    ((2, 9, 9, 264), 520, 132, "bf16_wgmma", 2),  # 45 blocks a split: 90 in one wave
+    ((2, 64, 64, 1024), 1024, 132, "bf16_wgmma", 1),   # 192 blocks: more than a wave
+    ((12, 64, 64, 256), 256, 132, "f32_fma", 11),  # 48 blocks of 64 x 64 a split, ~4 waves
+    ((1, 2, 3, 8), 8, 132, "f32_fma", 2),
 ])
-def test_dw_split_count(shape, c_out, sms, want):
-    assert rb.dw_splits(shape, c_out, sms) == want
+def test_dw_split_count(shape, c_out, sms, route, want):
+    assert rb.dw_splits(shape, c_out, sms, route) == want
 
 
 @pytest.mark.parametrize("shape,c_in,dtype,route", [
@@ -340,3 +346,105 @@ def test_wgmma_route_split_matches_reference_and_xla(shape, c_out):
     # float32 sums and fold in another order
     assert _rel(got.numpy(), rb.reflect_conv3x3_dx_reference(dy_t, w_t).numpy()) <= 1e-5
     assert _rel(got.numpy(), jax_rb._xla_data_grad(jnp.asarray(dy), jnp.asarray(w))) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,c_out,dtype,route", [
+    ((12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # train_gan_cutpp.yaml's trunk
+    ((4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp_512.yaml's
+    ((1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),            # any plane, channels of 8
+    ((3, 17, 33, 130), 70, torch.bfloat16, "bf16_wgmma"),       # both padded to 8
+    ((12, 64, 64, 256), 256, torch.float32, "f32_fma"),
+])
+def test_dw_route(shape, c_out, dtype, route):
+    assert rb.dw_route(shape, c_out, dtype) == route
+    assert route in rb.DW_ROUTES and set(rb.DW_ROUTE_LAUNCHES) == set(rb.DW_ROUTES)
+
+
+def test_dw_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        rb.dw_route((1, 4, 4, 8), 8, torch.float16)
+
+
+@pytest.mark.parametrize("shape,c_out", [((3, 5, 6, 130), 70), ((2, 2, 3, 13), 21),
+                                         ((1, 3, 2, 16), 24), ((1, 2, 5, 8), 13)])
+def test_pad_dw_channels(shape, c_out):
+    """Channel counts that are not multiples of 8 are zero-padded to them for
+    the wgmma route, and the padded pair's weight gradient (the route's
+    split, emulated) holds dw in its first Cin x Cout channels; channels of
+    8 are passed through as they are."""
+    x, _, _, dy = _inputs(shape, c_out, seed=12)
+    x_t, dy_t = torch.from_numpy(x), torch.from_numpy(dy)
+    x_p, dy_p = rb.pad_dw_channels(x_t, dy_t)
+    c_in = shape[3]
+    assert x_p.shape == shape[:3] + (-(-c_in // 8) * 8,)
+    assert dy_p.shape == shape[:3] + (-(-c_out // 8) * 8,)
+    assert (x_p is x_t) == (c_in % 8 == 0) and (dy_p is dy_t) == (c_out % 8 == 0)
+    assert torch.equal(x_p[..., :c_in], x_t) and not x_p[..., c_in:].any()
+    assert torch.equal(dy_p[..., :c_out], dy_t) and not dy_p[..., c_out:].any()
+    got = _wgmma_dw_split(x_p, dy_p, splits=3)
+    assert not got[:, :, c_in:].any() and not got[..., c_out:].any()
+    want = rb.reflect_conv3x3_dw_reference(x_t, dy_t).numpy()
+    assert _rel(got[:, :, :c_in, :c_out].numpy(), want) <= 1e-5
+
+
+def _wgmma_dw_split(x, dy, splits):
+    """The bf16 wgmma route of csrc/reflect_conv3x3_dw.cu written out in
+    plain torch, in float32: the N*H*W pixels cut into image-row segments of
+    64 (zero fill past W, as TMA gives), the segments split into ``splits``
+    shares in order; per segment and kernel row ky, x's row hr = reflect(h +
+    ky - 1) staged from column w0 - 1 to w0 + 64 (zero fill outside the
+    image), each of the three taps kx reading the staged slot p + kx through
+    x_chunk's remap (slot of column -1 -> column 1, of column W -> W - 2),
+    its (64, Cin)^T (64, Cout) product summed into the share's partial; then
+    dw_reduce's ordered sum of the partials."""
+    n, h, width, c_in = x.shape
+    c_out = dy.shape[3]
+    xf, dyf = x.float(), dy.float()
+    seg, segs_w = 64, -(-width // 64)
+    total = n * h * segs_w
+
+    def reflect(i, size):
+        return -i if i < 0 else 2 * size - 2 - i if i >= size else i
+
+    part = torch.zeros((splits, 3, 3, c_in, c_out))
+    for s in range(splits):
+        for g in range(total * s // splits, total * (s + 1) // splits):
+            w0, row, img = g % segs_w * seg, g // segs_w % h, g // (segs_w * h)
+            d = torch.zeros((seg, c_out))
+            d[:min(seg, width - w0)] = dyf[img, row, w0:w0 + seg]
+            qlo, qhi = (0 if w0 == 0 else -1), width - w0 + 1
+            slots = [2 if q == qlo else q - 2 if q == qhi else q for q in range(seg + 2)]
+            for ky in range(3):
+                xrow = xf[img, reflect(row + ky - 1, h)]
+                box = torch.zeros((seg + 2, c_in))   # slot q: column w0 - 1 + q
+                for q in range(seg + 2):
+                    if 0 <= w0 - 1 + q < width:
+                        box[q] = xrow[w0 - 1 + q]
+                for kx in range(3):
+                    a = box[[slots[p + kx] for p in range(seg)]]
+                    part[s, ky, kx] += a.T @ d
+    out = part[0].clone()
+    for s in range(1, splits):
+        out += part[s]
+    return out
+
+
+@pytest.mark.parametrize("shape,c_out,splits", [
+    ((2, 2, 2, 8), 8, 1), ((1, 2, 3, 8), 16, 2), ((1, 3, 2, 8), 8, 3),
+    ((2, 3, 3, 16), 8, 4), ((1, 5, 5, 8), 8, 2), ((2, 6, 7, 16), 24, 5),
+    ((1, 3, 65, 8), 8, 2),     # two segments a row, the second one pixel wide
+    ((1, 2, 130, 8), 16, 3),   # three segments a row, the last two pixels wide
+    ((1, 2, 64, 8), 8, 1),     # one whole segment: column W is slot 65
+])
+def test_wgmma_dw_split_matches_reference_pallas_and_xla(shape, c_out, splits):
+    """The segments, the row reflect by the producer's choice of row, the
+    column reflect by the slot remap, the three taps on one staged row and
+    the ordered sum of the shares give the weight gradient, at H and W of 2
+    and 3 and where W is not a multiple of 64 too."""
+    x, _, _, dy = _inputs(shape, c_out, seed=13)
+    x_t, dy_t = torch.from_numpy(x), torch.from_numpy(dy)
+    got = _wgmma_dw_split(x_t, dy_t, splits).numpy()
+    # float32 sums over N*H*W products in another order
+    assert _rel(got, rb.reflect_conv3x3_dw_reference(x_t, dy_t).numpy()) <= 1e-5
+    assert _rel(got, jax_rb._xla_weight_grad(jnp.asarray(x), jnp.asarray(dy))) <= 1e-4
+    assert _rel(got, jax_rb._dw_pallas(jnp.asarray(x), jnp.asarray(dy))) <= 1e-4
