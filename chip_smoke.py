@@ -14,13 +14,15 @@ Phases, one line each:
 3. kernels  - each kernel against its plain PyTorch version on the card
               (TF32 off): the trunk conv, its input grad (dx) and its
               weight grad (dw), at the trunk shapes in float32 and bf16
-              (dx and dw also at the 512^2 trunk's (2, 128, 128, 256)) and
-              at ragged shapes down to H, W of 2 and 3 (dw also at Cin 136
-              and 264, Cout 72 and 520, W 65 and 129), every dx and dw
-              route (float32 FMA, bf16 wgmma, channels that are not
-              multiples of 8 zero-padded to them) named on its line; dw
-              within 1e-4 of the largest value; dw and bf16 dx run twice
-              must be bitwise equal. The attention forward, dK/dV and dQ
+              (also at the 512^2 trunk's (2, 128, 128, 256)) and at ragged
+              shapes down to H, W of 2 and 3 (the forward and dw also at
+              Cin 136 and 264, Cout 72 and 520, W 65 and 129), every
+              forward, dx and dw route (float32 FMA, bf16 wgmma, channels
+              that are not multiples of 8 zero-padded to them) named on its
+              line; the forward within 2e-5 (+ 2e-5 relative, + one bf16
+              ulp in bf16) of the plain version, dw within 1e-4 of the
+              largest value; the forward, dw and bf16 dx run twice must be
+              bitwise equal. The attention forward, dK/dV and dQ
               at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
               bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
               ragged shapes, the bf16 forward's tile edges (n of 4097
@@ -47,7 +49,8 @@ Phases, one line each:
               bf16 compute, fp32 params; weights made from a seed with numpy
               in the JAX package's layout, converted by convert.py) serves 3
               batches of 8 seeded 256x256 photos through stylize_batch, 18
-              trunk launches a batch; a float32 forward at batch 2 through
+              trunk launches a batch, every one on the forward's bf16 wgmma
+              route; a float32 forward at batch 2 through
               the kernel and through the plain version agree to 1e-3.
               serve_variant: the same with self-attention after blocks 3
               and 7, channel attention after block 5 and style gates
@@ -59,15 +62,15 @@ Phases, one line each:
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
               must launch 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
-              trunk convs, each with its backward), every dx and dw on
-              its bf16 wgmma route; losses finite; G, D and
+              trunk convs, each with its backward), every forward, dx and dw
+              on its bf16 wgmma route; losses finite; G, D and
               EMA moved. Then one float32 step at batch 2 through the kernels
               and through the plain versions, from one state and one set of
               draws: losses agree to 1e-4, Adam's mu per leaf to 1e-3 of the
               leaf's max. train_variant: 4 variant steps (VARIANT_CUT), each
               launching 54/54/54 trunk and 6/6/6 attention kernels (fwd, dK/dV,
-              dQ: 2 blocks x 3 G passes), every dx and dw on its wgmma
-              route;
+              dQ: 2 blocks x 3 G passes), every trunk forward, dx and dw on
+              its wgmma route;
               losses finite; the attention,
               channel-attention and style-gate parameters and their EMA
               moved. Float32 at batch 2: the variant step amplifies any
@@ -76,9 +79,10 @@ Phases, one line each:
               (see phase_train_variant);
 7. timing   - trunk conv at batch 32 (serving) and 12 (the train step), dx
               and dw at batch 12, bf16, against their plain versions and
-              cuDNN's bf16 calls (CUDA events), and dx's three kernels
-              (frame, main, fold) and dw's two (main, reduce) apart on the
-              profiler's device clock; the attention
+              cuDNN's bf16 calls (CUDA events), and the forward's main
+              pass, dx's three kernels (frame, main, fold) and dw's two
+              (main, reduce) apart on the profiler's device clock; the
+              attention
               kernels at (12, 4096, 32, 256) bf16 against their plain
               versions, and the forward, the backward alone and forward +
               backward against scaled_dot_product_attention, and
@@ -274,21 +278,24 @@ def counts(resblock) -> tuple[int, int, int]:
 
 def reset_counts(resblock) -> None:
     resblock.LAUNCHES = resblock.DX_LAUNCHES = resblock.DW_LAUNCHES = 0
+    resblock.FWD_ROUTE_LAUNCHES = dict.fromkeys(resblock.FWD_ROUTES, 0)
     resblock.DX_ROUTE_LAUNCHES = dict.fromkeys(resblock.DX_ROUTES, 0)
     resblock.DW_ROUTE_LAUNCHES = dict.fromkeys(resblock.DW_ROUTES, 0)
 
 
 def route_counts(resblock) -> dict:
-    return {"dx": dict(resblock.DX_ROUTE_LAUNCHES), "dw": dict(resblock.DW_ROUTE_LAUNCHES)}
+    return {"fwd": dict(resblock.FWD_ROUTE_LAUNCHES), "dx": dict(resblock.DX_ROUTE_LAUNCHES),
+            "dw": dict(resblock.DW_ROUTE_LAUNCHES)}
 
 
-def check_grad_routes(resblock, before: dict, want: int, what: str) -> None:
-    """Every dx and every dw launched since ``before`` (``route_counts``)
-    took its bf16 wgmma route."""
+def check_routes(resblock, before: dict, want: dict, what: str) -> None:
+    """Every trunk forward, dx and dw launched since ``before``
+    (``route_counts``) took its bf16 wgmma route: ``want[op]`` launches of
+    each op, all on that route."""
     for op, now in route_counts(resblock).items():
         got = {k: v - before[op][k] for k, v in now.items()}
-        check(got == dict(dict.fromkeys(now, 0), bf16_wgmma=want),
-              f"{what}: {op} launches by route {got}, want {want} on bf16_wgmma")
+        check(got == dict(dict.fromkeys(now, 0), bf16_wgmma=want[op]),
+              f"{what}: {op} launches by route {got}, want {want[op]} on bf16_wgmma")
 
 
 def before_instance_norm(name: str) -> bool:
@@ -329,14 +336,34 @@ def phase_kernels(gen) -> dict:
     from gan_variant_research_tpu_torch.ops.kernels import resblock
 
     errs = {}
+    # forward routes: float32 FMA; bf16 wgmma (the trunks of
+    # train_gan_cutpp.yaml at serve and train batches, and of _512.yaml; Cin
+    # past 64-channel chunks (136, 264) and Cout past 256-wide tiles (520)
+    # or short of them (72); W past 64-pixel segments (65, 129: the last
+    # segment one pixel wide, its reflect target in the box's first slot);
+    # H, W of 2 and 3 (the row reflect folds back into the tile); one
+    # 64-channel chunk and about four tiles a block (the x stage that holds
+    # a tile's output is the one the tile after next loads); channels padded
+    # to 8 (Cin 130 and 13, Cout 70 and 21))
     cases = [(CONV_SHAPE, 256, torch.float32), (CONV_SHAPE, 256, torch.bfloat16),
+             (TRAIN_SHAPE, 256, torch.bfloat16), ((2, 128, 128, 256), 256, torch.bfloat16),
+             ((16, 64, 64, 64), 64, torch.bfloat16),
              ((2, 5, 7, 40), 40, torch.float32), ((2, 5, 7, 40), 40, torch.bfloat16),
              ((3, 17, 33, 130), 70, torch.float32), ((3, 17, 33, 130), 70, torch.bfloat16),
-             ((2, 2, 3, 13), 21, torch.bfloat16)]
+             ((3, 17, 33, 136), 72, torch.bfloat16), ((2, 9, 9, 264), 520, torch.bfloat16),
+             ((2, 5, 65, 16), 24, torch.bfloat16), ((1, 3, 129, 8), 8, torch.bfloat16),
+             ((2, 2, 2, 16), 24, torch.bfloat16), ((1, 3, 2, 8), 8, torch.bfloat16),
+             ((2, 2, 3, 13), 21, torch.float32), ((2, 2, 3, 13), 21, torch.bfloat16),
+             ((1, 3, 3, 8), 16, torch.bfloat16)]
     for shape, c_out, dtype in cases:
         x, w, b = conv_inputs(shape, c_out, dtype, gen)
+        route = resblock.fwd_route(shape, c_out, dtype)
+        before = dict(resblock.FWD_ROUTE_LAUNCHES)
         y = resblock.reflect_conv3x3(x, w, b)
+        y2 = resblock.reflect_conv3x3(x, w, b)
         torch.cuda.synchronize()
+        check(resblock.FWD_ROUTE_LAUNCHES[route] - before[route] == 2,
+              f"reflect_conv3x3 {shape} {dtype}: not launched on {route}")
         r = resblock.reflect_conv3x3_reference(x, w, b)
         check(y.dtype == dtype and y.shape == r.shape, f"{shape} {dtype}: bad output")
         d = (y.float() - r.float()).abs()
@@ -348,10 +375,12 @@ def phase_kernels(gen) -> dict:
             tol = tol + bf16_ulp(r)
         bad = int((d > tol).sum())
         errs[("fwd", shape, dtype)] = float(d.max())
-        phase("kernel", name="reflect_conv3x3", shape="x".join(map(str, shape)),
+        phase("kernel", name="reflect_conv3x3", route=route, shape="x".join(map(str, shape)),
               c_out=c_out, dtype=str(dtype).split(".")[-1], max_abs_err=f"{d.max().item():.3e}",
-              differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad)
+              differing=f"{(d > 0).float().mean().item():.5f}", over_tol=bad,
+              bitwise_repeatable=bool(torch.equal(y, y2)))
         check(bad == 0, f"reflect_conv3x3 {shape} {dtype}: {bad} values over tolerance")
+        check(torch.equal(y, y2), f"reflect_conv3x3 {shape} {dtype}: two runs differ")
 
     # dx and dw routes: float32 FMA; bf16 wgmma (the trunks of
     # train_gan_cutpp.yaml and _512.yaml; dx: Cin past one 256-wide block,
@@ -452,11 +481,12 @@ def phase_serve(rng):
     reset_counts(resblock)
     served = []
     for u8 in photos:
-        before = resblock.LAUNCHES
+        before, routes = resblock.LAUNCHES, route_counts(resblock)
         out = stylize_batch(net, u8)
         torch.cuda.synchronize()
         check(resblock.LAUNCHES - before == TRUNK_CONVS,
               f"{resblock.LAUNCHES - before} trunk launches in a batch, want {TRUNK_CONVS}")
+        check_routes(resblock, routes, {"fwd": TRUNK_CONVS, "dx": 0, "dw": 0}, "flagship batch")
         served.append(out)
     launches = counts(resblock)
     check(launches[1:] == (0, 0), f"serving launched backward kernels: {launches}")
@@ -468,7 +498,7 @@ def phase_serve(rng):
         plain_served = stylize_batch(net, photos[0])
     level = (served[0].int() - plain_served.int()).abs()
     phase("serve", model="resnet9-ngf64-9blocks", dtype="bf16", batches=SERVE_BATCHES,
-          batch=SERVE_BATCH, launches=launches[0],
+          batch=SERVE_BATCH, launches=launches[0], fwd_route="bf16_wgmma",
           uint8_vs_plain_identical=f"{(level == 0).float().mean().item():.5f}",
           uint8_vs_plain_max_levels=int(level.max()))
 
@@ -512,12 +542,12 @@ def phase_train(rng, g_tree, d_tree):
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
-        check_grad_routes(resblock, routes, 3 * TRUNK_CONVS, "flagship step")
+        check_routes(resblock, routes, dict.fromkeys(routes, 3 * TRUNK_CONVS), "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
         r1_values.append(vals["r1"])
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
-              launches_fwd_dx_dw="/".join(map(str, step_counts)), dx_dw_route="bf16_wgmma",
+              launches_fwd_dx_dw="/".join(map(str, step_counts)), fwd_dx_dw_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
         check(step_counts == want, f"step launched {step_counts} (fwd, dx, dw), want {want}")
@@ -570,17 +600,22 @@ def kernel_device_us(fn, iters: int, names: dict) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    got = {}
-    for e in prof.key_averages():
-        for k, name in names.items():
-            if name in e.key:
-                total = (e.device_time_total if hasattr(e, "device_time_total")
-                         else e.cuda_time_total)
-                got[k] = total / iters
+    for attempt in range(2):
+        # a session now and then gets no device events from the tracer
+        # (seen once in ten): take a second one before giving up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = {}
+        for e in prof.key_averages():
+            for k, name in names.items():
+                if name in e.key:
+                    total = (e.device_time_total if hasattr(e, "device_time_total")
+                             else e.cuda_time_total)
+                    got[k] = total / iters
+        if set(got) == set(names):
+            break
     check(set(got) == set(names), f"profiler saw {sorted(got)} of {sorted(names)}")
     return got
 
@@ -611,18 +646,24 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     from gan_variant_research_tpu_torch.ops.kernels import resblock
 
     # the forward at the served shape (batch 32) and at the train step's
-    # (batch 12), where its 54 launches a step run
+    # (batch 12), where its 54 launches a step run: plain, kernel, kernel,
+    # plain, and cuDNN, in one call; its main pass on the device clock
     conv_ms = {}
     for shape in ((TIME_BATCH, 64, 64, 256), TRAIN_SHAPE):
         x, w, b = conv_inputs(shape, 256, torch.bfloat16, gen)
-        conv_ms[shape[0]] = {name: event_ms(lambda f=f: f(x, w, b), iters=10)
-                             for name, f in (("kernel", resblock.reflect_conv3x3),
-                                             ("plain", resblock.reflect_conv3x3_reference),
-                                             ("cudnn_bf16", cudnn_conv))}
+        kernel = lambda: resblock.reflect_conv3x3(x, w, b)  # noqa: E731
+        plain = lambda: resblock.reflect_conv3x3_reference(x, w, b)  # noqa: E731
+        p1, k1, k2, p2 = (event_ms(f, iters=10) for f in (plain, kernel, kernel, plain))
+        lib = event_ms(lambda: cudnn_conv(x, w, b), iters=10)
+        conv_ms[shape[0]] = {"kernel": (k1 + k2) / 2, "plain": (p1 + p2) / 2, "cudnn_bf16": lib}
+        main_us = kernel_device_us(kernel, 10, {"main": "fwd_main_wgmma"})["main"]
         flop = 2 * 9 * int(np.prod(shape)) * 256
         phase("timing", op="reflect_conv3x3", shape="x".join(map(str, shape)), dtype="bf16",
-              **{f"{k}_ms": f"{v:.4f}" for k, v in conv_ms[shape[0]].items()},
-              kernel_tflops=f"{flop / conv_ms[shape[0]]['kernel'] / 1e9:.2f}")
+              route=resblock.fwd_route(shape, 256, torch.bfloat16),
+              kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
+              cudnn_bf16_ms=f"{lib:.4f}", main_us=f"{main_us:.2f}",
+              kernel_tflops=f"{flop / conv_ms[shape[0]]['kernel'] / 1e9:.2f}",
+              main_tflops=f"{flop / main_us / 1e6:.2f}")
 
     x, w, _ = conv_inputs(TRAIN_SHAPE, 256, torch.bfloat16, gen)
     dy = torch.randn(TRAIN_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1024,10 +1065,11 @@ def phase_serve_variant(rng):
     reset_attn_counts(sa)
     served = []
     for u8 in photos:
-        before = (resblock.LAUNCHES, *attn_counts(sa))
+        before, routes = (resblock.LAUNCHES, *attn_counts(sa)), route_counts(resblock)
         out = stylize_batch(net, u8)
         torch.cuda.synchronize()
         step = tuple(a - b for a, b in zip((resblock.LAUNCHES, *attn_counts(sa)), before))
+        check_routes(resblock, routes, {"fwd": TRUNK_CONVS, "dx": 0, "dw": 0}, "variant batch")
         check(step == (TRUNK_CONVS, ATTN_BLOCKS, 0, 0),
               f"a variant batch launched {step} (trunk, attention fwd/dkv/dq), "
               f"want {(TRUNK_CONVS, ATTN_BLOCKS, 0, 0)}")
@@ -1096,7 +1138,7 @@ def phase_train_variant(rng, g_tree, d_tree):
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
-        check_grad_routes(resblock, routes, 3 * TRUNK_CONVS, "variant step")
+        check_routes(resblock, routes, dict.fromkeys(routes, 3 * TRUNK_CONVS), "variant step")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
@@ -1400,7 +1442,7 @@ def main() -> int:
         # the times, bound and library time at the train step's batch 12,
         # where its `launches` run; the served batch of 32 beside them
         row("reflect_conv3x3", resblock_py.format(156), train_launches[0],
-            errs[("fwd", CONV_SHAPE, bf16)], conv_ms[TRAIN_SHAPE[0]]["kernel"],
+            errs[("fwd", TRAIN_SHAPE, bf16)], conv_ms[TRAIN_SHAPE[0]]["kernel"],
             conv_ms[TRAIN_SHAPE[0]]["plain"], fwd_bound(TRAIN_SHAPE),
             conv_ms[TRAIN_SHAPE[0]]["cudnn_bf16"], shape=list(TRAIN_SHAPE),
             serve_shape=list(serve_shape), serve_launches=serve_launches,

@@ -6,7 +6,8 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 - ``reflect_conv3x3(x, w, b)``: reflect-pad(1) + 3x3 valid conv + bias on
   NHWC tensors, differentiable through ``_ReflectConv3x3`` (a
   ``torch.autograd.Function``, the counterpart of the JAX ``custom_vjp``).
-  Its forward is ``csrc/reflect_conv3x3.cu`` on a CUDA tensor and
+  Its forward is ``csrc/reflect_conv3x3.cu`` on a CUDA tensor (one of the
+  routes ``FWD_ROUTES``, picked by ``fwd_route``) and
   ``reflect_conv3x3_reference`` on a CPU tensor; its backward is
   ``reflect_conv3x3_dx`` and ``reflect_conv3x3_dw``.
 - ``reflect_conv3x3_dx(dy, w)``: the input gradient, ``csrc/
@@ -20,8 +21,9 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
 versions serve CPU tensors. ``LAUNCHES``, ``DX_LAUNCHES`` and
-``DW_LAUNCHES`` count the kernel launches, ``DX_ROUTE_LAUNCHES`` and
-``DW_ROUTE_LAUNCHES`` the ``dx`` and ``dw`` launches by route.
+``DW_LAUNCHES`` count the kernel launches, ``FWD_ROUTE_LAUNCHES``,
+``DX_ROUTE_LAUNCHES`` and ``DW_ROUTE_LAUNCHES`` the forward, ``dx`` and
+``dw`` launches by route.
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
 
-# The dx kernel's routes, in the order of its ``route`` argument: float32 on
-# FMA, bf16 on wgmma + TMA.
+# The forward kernel's routes, in the order of its ``route`` argument:
+# float32 on FMA, bf16 on wgmma + TMA.
+FWD_ROUTES = ("f32_fma", "bf16_wgmma")
+FWD_ROUTE_LAUNCHES = dict.fromkeys(FWD_ROUTES, 0)
+# The dx kernel's routes, likewise.
 DX_ROUTES = ("f32_fma", "bf16_wgmma")
 DX_ROUTE_LAUNCHES = dict.fromkeys(DX_ROUTES, 0)
 # The dw kernel's routes, likewise.
@@ -189,19 +194,26 @@ def reflect_conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Ten
 def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     _check_cuda(x)
-    n, h, width, c_in = x.shape
     c_out = w.shape[3]
+    route = fwd_route(x.shape, c_out, x.dtype)
     w = w.to(x.dtype).contiguous()
     b = b.float().contiguous()
-    y = torch.empty((n, h, width, c_out), dtype=x.dtype, device=x.device)
+    if route == "bf16_wgmma":
+        # channels of 8; the tensor maps need 16-byte aligned bases
+        x, w, b = pad_fwd_channels(x, w, b)
+        x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+    n, h, width, c_in_k = x.shape
+    c_out_k = w.shape[3]
+    y = torch.empty((n, h, width, c_out_k), dtype=x.dtype, device=x.device)
     fn = _forward_fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 n, h, width, c_in, c_out, _DTYPE_CODES[x.dtype],
+                 n, h, width, c_in_k, c_out_k, FWD_ROUTES.index(route),
                  torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "reflect_conv3x3")
+    _raise_on(err, f"reflect_conv3x3 ({route})")
     LAUNCHES += 1
-    return y
+    FWD_ROUTE_LAUNCHES[route] += 1
+    return y if c_out_k == c_out else y[..., :c_out].contiguous()
 
 
 def _route(dtype: torch.dtype, what: str) -> str:
@@ -210,6 +222,30 @@ def _route(dtype: torch.dtype, what: str) -> str:
     if dtype != torch.bfloat16:
         raise TypeError(f"{what} must be float32 or bfloat16, got {dtype}")
     return "bf16_wgmma"
+
+
+def fwd_route(x_shape, c_out: int, dtype: torch.dtype) -> str:
+    """The route of ``csrc/reflect_conv3x3.cu`` for an input of ``x_shape``
+    (N, H, W, Cin) and ``dtype`` with ``c_out`` output channels: float32 on
+    FMA, bf16 on wgmma + TMA (channel counts that are not multiples of 8 are
+    zero-padded to them, ``pad_fwd_channels``)."""
+    return _route(dtype, "x")
+
+
+def pad_fwd_channels(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """x (N, H, W, Cin), w (3, 3, Cin, Cout) and b (Cout,) zero-padded so that
+    Cin and Cout are multiples of 8, as the wgmma route's tensor maps need
+    (16-byte rows); unpadded tensors come back as they are. The zeros add
+    nothing to the float32 sums, so the first Cout channels of the padded
+    conv are the conv."""
+    p_in, p_out = -w.shape[2] % 8, -w.shape[3] % 8
+    if p_in:
+        x = F.pad(x, (0, p_in))
+    if p_in or p_out:
+        w = F.pad(w, (0, p_out, 0, p_in))
+    if p_out:
+        b = F.pad(b, (0, p_out))
+    return x, w, b
 
 
 def dx_route(dy_shape, c_in: int, dtype: torch.dtype) -> str:

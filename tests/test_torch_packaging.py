@@ -183,6 +183,18 @@ def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
     as_kinds = [{ctypes.c_void_p: "ptr", ctypes.c_int: "int"}[t] for t in argtypes]
     assert as_kinds == kinds
     assert kinds[-1] == "ptr"   # the stream
+    if kernel == "reflect_conv3x3":
+        # the last int is the route, an index into resblock.FWD_ROUTES
+        source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
+        assert re.search(r"int Cin, int Cout, int route,\s*void\* stream\)", source)
+        # and the C entry launches the wgmma route at that route's index, the
+        # float32 kernel at the other
+        from gan_variant_research_tpu_torch.ops.kernels import resblock
+
+        assert re.search(rf"route == {resblock.FWD_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
+                         source)
+        assert re.search(rf"route != {resblock.FWD_ROUTES.index('f32_fma')}\) return[^;]*;"
+                         r"[^}]*reflect_conv3x3_f32<<<", source)
     if kernel == "reflect_conv3x3_dx":
         # the last int is the route, an index into resblock.DX_ROUTES
         source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
@@ -221,6 +233,23 @@ def test_dx_probe_variants_apply_to_the_kernel_source():
     for variant in [*probe.EDITS, *probe.DEFAULT]:
         edited = probe.variant_source(source, variant)
         assert variant == "base" or edited != source
+
+
+def test_fwd_probe_variants_apply_to_the_kernel_source():
+    """The same for scripts/probe_torch_fwd.py and csrc/reflect_conv3x3.cu:
+    every edit finds its text exactly once, so that it changes the wgmma
+    route and nothing else."""
+    spec = importlib.util.spec_from_file_location("probe_torch_fwd",
+                                                  REPO_ROOT / "scripts" / "probe_torch_fwd.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    source = (REPO_ROOT / PKG / "csrc" / "reflect_conv3x3.cu").read_text()
+    assert probe.variant_source(source, "base") == source
+    for variant in [*probe.EDITS, *probe.DEFAULT]:
+        edited = probe.variant_source(source, variant)
+        assert variant == "base" or edited != source
+        for old, _ in probe.EDITS[variant.split("+")[0]]:
+            assert source.count(old) == 1, (variant, old)
 
 
 def test_dw_probe_variants_apply_to_the_kernel_source():
