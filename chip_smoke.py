@@ -22,25 +22,25 @@ Phases, one line each:
               line; the forward within 2e-5 (+ 2e-5 relative, + one bf16
               ulp in bf16) of the plain version, dw within 1e-4 of the
               largest value; the forward, dw and bf16 dx run twice must be
-              bitwise equal. The attention forward, dK/dV and dQ
-              at (B, n, d_qk, d_v) = (12, 4096, 32, 256) in float32 and
-              bf16, (32, 4096, 32, 256) and (2, 16384, 32, 256) in bf16,
-              ragged shapes, the bf16 forward's tile edges (n of 4097
-              and 129, d_qk 8 and 64, d_v 8 and 136) and dK/dV's (n of
-              127, 128, 129 and 4097 at B = 1, d_qk 8, 24 and 64, d_v 8,
-              72 and 136): float32 within 1e-5 (forward) and 1e-4
-              (gradients) of the largest value; the bf16 forward at most
-              twice as far from the float32 plain version as the bf16
-              plain version is; bf16 dK/dV and dQ within one bf16 rounding
-              of the largest value of the contract version (the library's
-              rounding points, float64 sums) and, by RMS, at most twice as
-              far from the float32 plain version as the bf16 plain version
-              is; each attention kernel run twice bitwise equal (the
-              forward's o and lse too). tolerance: the bf16 dK/dV and dQ
-              over 8 input seeds at (2, 16384, 32, 256) and (12, 4096, 32,
-              256), each output's error (max and RMS) against a float64
-              core and against the contract version, for the kernel, the
-              plain version and the contract version with float32 sums,
+              bitwise equal. The attention forward, dK/dV and dQ at (B, n,
+              d_qk, d_v) = (12, 4096, 32, 256) in float32 and bf16, (32, 4096,
+              32, 256) and (2, 16384, 32, 256) in bf16, ragged shapes, the
+              bf16 forward's tile edges (n of 4097 and 129, d_qk 8 and 64, d_v
+              8 and 136) and dK/dV's (n of 127, 128, 129 and 4097 at B = 1,
+              d_qk 8, 24 and 64, d_v 8, 72 and 136) and dQ's (n of 1, 63, 65,
+              129, 200 and 4097, B up to 3, d_qk 8 to 64, d_v 8 to 256):
+              float32 within 1e-5 (forward) and 1e-4 (gradients) of the
+              largest value; the bf16 forward at most twice as far from the
+              float32 plain version as the bf16 plain version is; bf16 dK/dV
+              and dQ within one bf16 rounding of the largest value of the
+              contract version (the library's rounding points, float64 sums)
+              and, by RMS, at most twice as far from the float32 plain version
+              as the bf16 plain version is; each attention kernel run twice
+              bitwise equal (the forward's o and lse too). tolerance: the bf16
+              dK/dV and dQ over 8 input seeds at (2, 16384, 32, 256) and (12,
+              4096, 32, 256), each output's error (max and RMS) against a
+              float64 core and against the contract version, for the kernel,
+              the plain version and the contract version with float32 sums,
               and the same check on every seed;
 4. autograd - the gradients of one float32 trunk conv and of one float32
               attention core (4, 4096, 32, 256) through their
@@ -77,20 +77,20 @@ Phases, one line each:
               rounding in the attention core, so the kernel path is held to
               be no farther from a float64-core path than the plain path is
               (see phase_train_variant);
-7. timing   - trunk conv at batch 32 (serving) and 12 (the train step), dx
-              and dw at batch 12, bf16, against their plain versions and
-              cuDNN's bf16 calls (CUDA events), and the forward's main
-              pass, dx's three kernels (frame, main, fold) and dw's two
-              (main, reduce) apart on the profiler's device clock; the
-              attention
-              kernels at (12, 4096, 32, 256) bf16 against their plain
-              versions, and the forward, the backward alone and forward +
-              backward against scaled_dot_product_attention, and
-              the forward at the served shape (32, 4096, 32, 256) against
-              it too; a served batch of 32 of each generator; ms per train step
-              (warmup and R1) of each on the kernel path and the plain path;
-              a torch.profiler op table of a served batch and of a warmup
-              step of each, with the device's busy time and idle share.
+7. timing   - trunk conv at batch 32 (serving) and 12 (the train step), dx and
+              dw at batch 12, bf16, against their plain versions and cuDNN's
+              bf16 calls (CUDA events), and the forward's main pass, dx's
+              three kernels (frame, main, fold) and dw's two (main, reduce)
+              apart on the profiler's device clock; the attention kernels at
+              (12, 4096, 32, 256) bf16 against their plain versions (dQ's
+              kernel also on the device clock), and the forward, the backward
+              alone and forward + backward against
+              scaled_dot_product_attention, and the forward at the served
+              shape (32, 4096, 32, 256) against it too; a served batch of 32
+              of each generator; ms per train step (warmup and R1) of each on
+              the kernel path and the plain path; a torch.profiler op table of
+              a served batch and of a warmup step of each, with the device's
+              busy time and idle share.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON (each row's times and bound at the shape its
@@ -819,7 +819,14 @@ ATTN_CASES = [((12, 4096, 32, 256), torch.float32), (ATTN_SHAPE, torch.bfloat16)
               # (32 at d_qk 64), v and do in 64-column boxes; one image
               ((1, 127, 24, 72), torch.bfloat16), ((1, 128, 64, 8), torch.bfloat16),
               ((1, 129, 8, 136), torch.bfloat16), ((1, 4097, 64, 256), torch.bfloat16),
-              ((1, 4097, 24, 72), torch.bfloat16)]
+              ((1, 4097, 24, 72), torch.bfloat16),
+              # the bf16 dQ's tile edges: 128 queries a block, 64 keys a tile, d_qk
+              # padded to 16/32/64, do and v in 1, 3 or 4 64-column boxes; one key,
+              # less than a tile, image boundaries at ragged n (and (2, 4097, 32,
+              # 256) above)
+              ((1, 1, 8, 8), torch.bfloat16), ((2, 63, 32, 256), torch.bfloat16),
+              ((3, 129, 24, 8), torch.bfloat16), ((1, 200, 64, 136), torch.bfloat16),
+              ((2, 65, 16, 192), torch.bfloat16)]
 
 
 def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
@@ -1294,9 +1301,14 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
         p2 = event_ms(plain, iters=3)
         times[kind] = ((k1 + k2) / 2, (p1 + p2) / 2)
         bound, by = bound_ms(flops[kind], nbytes[kind], PEAK_BF16_FLOPS)
+        # dQ's kernel on the profiler's device clock too
+        device = {}
+        if kind == "dq":
+            us = kernel_device_us(kernel, 10, {"dq": "attn_dq_wgmma"})["dq"]
+            device = {"kernel_device_us": f"{us:.2f}"}
         phase("timing", op=f"spatial_attention_{kind}", shape="x".join(map(str, shape)),
               dtype="bf16", kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
-              bound_ms=f"{bound:.4f}", bound_by=by,
+              bound_ms=f"{bound:.4f}", bound_by=by, **device,
               kernel_tflops=f"{flops[kind] / times[kind][0] / 1e9:.2f}")
 
     # fwd+bwd through the Function, the plain version and SDPA

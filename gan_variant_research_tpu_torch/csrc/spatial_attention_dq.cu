@@ -14,18 +14,37 @@
 //   cast once to the input dtype.
 //
 // What bounds it. 2 n^2 (2 d_qk + d_v) operations per image (p recomputed,
-// dp, dQ): 120 GFLOP at B = 12, against ~30 MB of inputs and output:
-// operation-bound on the tensor cores.
+// dp, dQ): 129 GFLOP at B = 12, against ~60 MB of inputs and output:
+// operation-bound on the tensor cores (0.130 ms at 989 TFLOP/s). dp is 80%
+// of the operations.
 //
-// What this design does about it. Block (128 query rows, one image) keeps
-// its q and do rows in shared memory and walks the keys in tiles of 64, K
-// and V staged by cp.async two deep; each of 8 warps owns 16 query rows and
-// their dQ in registers, so the block owns its output rows: no atomics, the
-// same bits from run to run. bf16: mma.sync m16n8k16; ds goes from the
-// accumulator registers straight into the A fragments of ds k. float32:
-// FMA (never TF32), ds through shared memory. wgmma, TMA and pipelining
-// come later.
+// What this design does about it. Each block owns 128 queries of one image
+// and walks every key in a fixed order, so dQ stays in registers until the
+// end and each block writes its own rows: no atomics, the same bits from
+// run to run. bf16 on wgmma, three warpgroups: a producer, which setmaxnreg
+// drops to 24 registers and whose one thread starts every load, and two
+// consumers of 64 queries each, raised to 240. The block's q and do are
+// loaded once by TMA over 3-D tensor maps of (B, n, d), which zero-fill
+// rows past n and columns past d within their own image; each consumer then
+// holds its do rows as wgmma A fragments in registers (ldmatrix from the
+// 128-byte swizzle; 64 registers at d_v 256), so that dp reads only v from
+// shared memory. The producer fills a ring of 64-key tiles (k, and v in
+// 64-column boxes), each stage with a full and an empty mbarrier. Per tile
+// and consumer: s = q k^T (wgmma.m64n64k16, both operands K-major from
+// shared memory) and dp = do v^T (m64n64k16, do from registers, v K-major);
+// p = exp2(s log2e - lse log2e), keys past n masked to 0 by index (a
+// zero-filled key has s = 0, and exp2(-lse log2e) overflows once lse <
+// -88); ds = p (dp - di) packed to bf16 straight from the accumulators into
+// the A registers; dQ += ds k (m64n{d_qk}k16, k as an MN-major operand: the
+// stage that s read K-major). The two consumers take turns at the tensor
+// cores (two named barriers): in its turn a consumer starts tile j's dQ
+// product and tile j + 1's s and dp as one wgmma group, then waits for them,
+// releases stage j and computes tile j + 1's ds while the other consumer's
+// group runs. lse and di of a thread's two rows are read once (+inf and 0
+// past n, so that such a row weighs nothing). float32: FMA (never TF32), ds
+// through shared memory.
 
+#include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,50 +54,205 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BK = 64;   // keys per tile
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// ---------------------------------------------------------------------------
+// bf16 on wgmma. Shared memory holds the block's q (128 rows) and do (four
+// 64-column boxes of 128 rows), a ring of key tiles (k, v in four 64-column
+// boxes) and the mbarriers. q and k rows are 2 * DQK bytes (32, 64 or 128)
+// in the swizzle of that width (TMA writes it, the wgmma descriptors name
+// it); v and do rows are 128 bytes in the 128-byte swizzle. Every tile
+// starts on a 1024-byte boundary.
+
+constexpr int BQW = 128;      // queries per block: two consumer warpgroups of 64
+constexpr int BKW = 64;       // keys per tile
+constexpr int NT = 384;       // threads per block: producer + two consumers
+constexpr int CONSUMERS = 256;
+constexpr int DO_BOX = BQW * 128;   // one 64-column box of the block's do
+constexpr int V_BOX = BKW * 128;    // one 64-column box of a v tile
+constexpr int V_TILE = 4 * V_BOX;
+
+template <int DQK>
+struct Layout {
+  static constexpr int STAGES = DQK == 64 ? 3 : 4;        // four do not fit at d_qk 64
+  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
+  static constexpr int Q = 0;                             // [BQW][RB]
+  static constexpr int DO = Q + BQW * RB;                 // [4][BQW][128]
+  static constexpr int K = DO + 4 * DO_BOX;               // [STAGES][BKW][RB]
+  static constexpr int V = K + STAGES * BKW * RB;         // [STAGES][4][BKW][128]
+  static constexpr int BAR = V + STAGES * V_TILE;         // full[STAGES], empty[STAGES], q/do
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
+  static_assert(BYTES <= 232448, "a block's shared memory");
+  static_assert((BQW * RB) % 1024 == 0 && (BKW * RB) % 1024 == 0, "tiles on 1024-byte boundaries");
+};
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Until the phase of this parity has completed. (No trap on a long wait: one
+// trap block shared by the producer and the consumers makes their paths
+// meet, and ptxas then holds the consumers to the entry's registers.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// One box of a 3-D tensor map (coordinates innermost first) to shared
+// memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
 }
 
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8; register i holds (row g, cols 2t, 2t+1) of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8; register i holds (row g, cols 2t, 2t+1) of
+// matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
 }
 
-// Transposed: register i holds (rows 2t, 2t+1, col g) of matrix i.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// d (64 x 64, float32) = or += a (64 x 16, shared) b^T (64 x 16, shared),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, float32) = or += a (64 x 16, bf16 registers) b^T (64 x 16,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, float32) += a (64 x 16, bf16 registers) b (16 x 64, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, float32) += a (64 x 16, bf16 registers) b (16 x 32, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 16, float32) += a (64 x 16, bf16 registers) b (16 x 16, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -86,176 +260,227 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on mma.sync. DQK: d_qk padded to 16, 32 or 64; DV: d_v padded to 128
-// or 256. Shared-memory rows padded by 8 elements.
+// The two consumers take turns at starting their products (named barriers 1
+// and 2, one a consumer, 256 threads: the waiting consumer's 128 and the
+// other's 128 arrivals), so that one consumer's exponentials and ds run
+// while the tensor cores work on the other's products.
+__device__ __forceinline__ void turn_wait(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+}
 
-constexpr int BQ_BF16 = 128;   // 8 warps x 16 query rows
+__device__ __forceinline__ void turn_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+}
 
-template <int DQK, int DV>
-__global__ void __launch_bounds__(256, 1)
-attn_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ di,
-             bf16* __restrict__ dq, int n, int dqk, int dv) {
-  constexpr int QS = DQK + 8;
-  constexpr int VS = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ_BF16][QS]
-  bf16* dos = qs + BQ_BF16 * QS;                   // [BQ_BF16][VS]
-  bf16* ks = dos + BQ_BF16 * VS;                   // [2][BK][QS]
-  bf16* vs = ks + 2 * BK * QS;                     // [2][BK][VS]
+// s = q k^T and dp = do v^T of one key tile (64 queries x BKW keys each),
+// started as wgmmas: both operands of s from shared memory, K-major; do from
+// the A registers and v K-major. Boxes of v wholly past d_v are not loaded.
+template <int DQK>
+__device__ __forceinline__ void mma_s_dp(float (&s)[BKW / 2], float (&dp)[BKW / 2],
+                                           const uint32_t (&do_a)[16][4], uint32_t q_rows,
+                                           uint32_t k_tile, uint32_t v_tile, int boxes) {
+  using L = Layout<DQK>;
+#pragma unroll
+  for (int kk = 0; kk < DQK / 16; ++kk)
+    wgmma_ss(s, make_desc(q_rows + kk * 32, 16, 8 * L::RB, L::MODE), make_desc(k_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c < boxes) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_kmajor(dp, do_a[4 * c + kk], make_desc(v_tile + c * V_BOX + kk * 32, 16, 1024, 1), c | kk);
+    }
+  }
+}
 
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ_BF16;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// p and ds of one key tile from the s and dp accumulators (k0: its first
+// key), ds packed to bf16 straight into the A fragments of dQ += ds k.
+// Keys past n weigh nothing: their p is 0, whatever lse is. Accumulator
+// layout (wgmma's): register 4c + e holds column 8c + 2t + (e & 1) of row
+// g + 8 (e >> 1) of the warp's 16 (g = lane / 4, t = lane % 4); so
+// registers 8kk..8kk+7 are the A fragment of keys 16kk..16kk+15.
+__device__ __forceinline__ void ds_fragments(uint32_t (&da)[BKW / 16][4], float (&s)[BKW / 2],
+                                             const float (&dp)[BKW / 2], const float (&l_r)[2],
+                                             const float (&d_r)[2], int k0, int n, int t) {
+  if (k0 + BKW > n) {
+#pragma unroll
+    for (int i = 0; i < BKW / 2; ++i)
+      if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
+  }
+#pragma unroll
+  for (int c = 0; c < BKW / 8; ++c) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(s[4 * c + e], LOG2E, -l_r[e >> 1]));
+      ds[e] = p * (dp[4 * c + e] - d_r[e >> 1]);
+    }
+    da[c / 2][2 * (c & 1)] = pack_bf16(ds[0], ds[1]);
+    da[c / 2][2 * (c & 1) + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// One consumer warpgroup: its 64 queries against every key of the image.
+// Key tile j is read from ring stage j % STAGES once its full barrier
+// completes. In turn with the other consumer it starts dQ's product of tile
+// j together with s and dp of tile j + 1, waits for both, releases stage j
+// on its empty barrier, and computes tile j + 1's ds while the other
+// consumer's products run.
+template <int DQK>
+__device__ __forceinline__ void consume_queries(uint32_t base, int cw, uint32_t full,
+                                                uint32_t empty, uint32_t qdo_full, int n,
+                                                int boxes, const float* __restrict__ lse_img,
+                                                const float* __restrict__ di_img,
+                                                bf16* __restrict__ dq_img, int row0, int dqk) {
+  using L = Layout<DQK>;
+  constexpr int STAGES = L::STAGES;
+  const int lane = threadIdx.x % 32;
+  const int wl = (threadIdx.x / 32) % 4;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const bf16* qb = q + (size_t)b * n * dqk;
-  const bf16* kb = k + (size_t)b * n * dqk;
-  const bf16* vb = v + (size_t)b * n * dv;
-  const bf16* dob = dout + (size_t)b * n * dv;
+  const uint32_t q_rows = base + L::Q + cw * 64 * L::RB;
 
-  for (int i = tid; i < BQ_BF16 * (DQK / 8); i += 256) {
-    const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-    const bool ok = q0 + r < n && c < dqk;
-    cp_async16(&qs[r * QS + c], ok ? qb + (size_t)(q0 + r) * dqk + c : qb, ok);
-  }
-  for (int i = tid; i < BQ_BF16 * (DV / 8); i += 256) {
-    const int r = i / (DV / 8), c = (i % (DV / 8)) * 8;
-    const bool ok = q0 + r < n && c < dv;
-    cp_async16(&dos[r * VS + c], ok ? dob + (size_t)(q0 + r) * dv + c : dob, ok);
-  }
-  auto stage = [&](int j, int buf) {
-    const int k0 = j * BK;
-    for (int i = tid; i < BK * (DQK / 8); i += 256) {
-      const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
-      const bool ok = k0 + r < n && c < dqk;
-      cp_async16(&ks[(buf * BK + r) * QS + c], ok ? kb + (size_t)(k0 + r) * dqk + c : kb, ok);
-    }
-    for (int i = tid; i < BK * (DV / 8); i += 256) {
-      const int r = i / (DV / 8), c = (i % (DV / 8)) * 8;
-      const bool ok = k0 + r < n && c < dv;
-      cp_async16(&vs[(buf * BK + r) * VS + c], ok ? vb + (size_t)(k0 + r) * dv + c : vb, ok);
-    }
-  };
-
-  const int nk = (n + BK - 1) / BK;
-  stage(0, 0);
-  cp_async_commit();
-
-  // rows g and g + 8 of this warp's 16: lse in log2 units (+inf past n, so
-  // that p = 0) and di
+  // lse in log2 units and di of rows g and g + 8 of this warp's 16: +inf and
+  // 0 past n, so that such a row's p and ds are 0
   float l_r[2], d_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
-    l_r[h] = row < n ? lse[(size_t)b * n + row] * LOG2E : INFINITY;
-    d_r[h] = row < n ? di[(size_t)b * n + row] : 0.f;
+    const int row = row0 + wl * 16 + g + 8 * h;
+    l_r[h] = row < n ? lse_img[row] * LOG2E : INFINITY;
+    d_r[h] = row < n ? di_img[row] : 0.f;
   }
-  float acc[DQK / 8][4];
+  float dq_acc[DQK / 2];
 #pragma unroll
-  for (int j = 0; j < DQK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[DQK / 16][4];
-  const int lrow = (lane % 8) + ((lane / 8) % 2) * 8;
-  const int lcol = (lane / 16) * 8;
-  const int brow = (lane % 8) + (lane / 16) * 8;
-  const int bcol = ((lane / 8) % 2) * 8;
-  const bf16* dor = dos + (warp * 16 + lrow) * VS + lcol;   // this lane's do A address
+  for (int i = 0; i < DQK / 2; ++i) dq_acc[i] = 0.f;
 
+  // do as the A fragments of dp, once: 16 columns of d_v a fragment, four a
+  // 64-column box; lane l reads row 16 wl + l % 8 + 8 ((l / 8) % 2), the 16
+  // bytes of columns 8 (l / 16) on, where the 128-byte swizzle put them
+  mbar_wait(qdo_full, 0);
+  const int lrow = cw * 64 + wl * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
+  const uint32_t do_row = base + L::DO + lrow * 128;
+  uint32_t do_a[16][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      do_a[4 * c + kk][0] = do_a[4 * c + kk][1] = do_a[4 * c + kk][2] = do_a[4 * c + kk][3] = 0u;
+      if (c < boxes) ldsm_x4(do_a[4 * c + kk], do_row + c * DO_BOX + (((2 * kk + lane / 16) ^ (lrow & 7)) << 4));
+    }
+
+  // tile 0's s and dp in this consumer's first turn (consumer 0 goes first)
+  float s[BKW / 2], dp[BKW / 2];
+  uint32_t da[BKW / 16][4];
+#pragma unroll
+  for (int i = 0; i < BKW / 2; ++i) s[i] = dp[i] = 0.f;
+  if (cw == 1) turn_pass(cw);
+  mbar_wait(full, 0);
+  turn_wait(cw);
+  wgmma_fence();
+  mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K, base + L::V, boxes);
+  wgmma_commit();
+  turn_pass(cw);
+  wgmma_wait_all();
+  reg_fence(s);
+  reg_fence(dp);
+  ds_fragments(da, s, dp, l_r, d_r, 0, n, t);
+
+  const int nk = (n + BKW - 1) / BKW;
   for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) stage(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DQK / 16; ++kk)
-        ldsm_x4(qf[kk], &qs[(warp * 16 + lrow) * QS + kk * 16 + lcol]);
-    }
-    const bf16* kt = ks + buf * BK * QS;
-    const bf16* vt = vs + buf * BK * VS;
+    const int stage = j % STAGES;
+    const bool next = j + 1 < nk;
+    const int stage1 = (j + 1) % STAGES;
+    if (next) mbar_wait(full + 8 * stage1, ((j + 1) / STAGES) & 1);
+    const uint32_t k_tile = base + L::K + stage * BKW * L::RB;
 
-    // p = exp(q k^T - lse): 16 rows x 64 keys a warp; keys past n give 0
-    float p[BK / 8][4];
+    // dQ += bf16(ds) k (k as an MN-major operand), then tile j + 1's s, dp
+    turn_wait(cw);
+    reg_fence(dq_acc);
+    wgmma_fence();
 #pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[jt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, &kt[(jp * 16 + brow) * QS + kk * 16 + bcol]);
-        mma_bf16(p[2 * jp], qf[kk], r[0], r[1]);
-        mma_bf16(p[2 * jp + 1], qf[kk], r[2], r[3]);
-      }
-    const int k0 = j * BK;
-#pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[jt][e] = k0 + jt * 8 + 2 * t + (e & 1) < n
-                       ? exp2f(p[jt][e] * LOG2E - l_r[e >> 1]) : 0.f;
-
-    // dp = do v^T, contraction over d_v
-    float dp[BK / 8][4];
-#pragma unroll
-    for (int jt = 0; jt < BK / 8; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[jt][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, dor + kk * 16);
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4(r, &vt[(jp * 16 + brow) * VS + kk * 16 + bcol]);
-        mma_bf16(dp[2 * jp], a, r[0], r[1]);
-        mma_bf16(dp[2 * jp + 1], a, r[2], r[3]);
-      }
-    }
-
-    // dQ += bf16(p (dp - di)) k
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(p[2 * kk][0] * (dp[2 * kk][0] - d_r[0]),
-                       p[2 * kk][1] * (dp[2 * kk][1] - d_r[0]));
-      a[1] = pack_bf16(p[2 * kk][2] * (dp[2 * kk][2] - d_r[1]),
-                       p[2 * kk][3] * (dp[2 * kk][3] - d_r[1]));
-      a[2] = pack_bf16(p[2 * kk + 1][0] * (dp[2 * kk + 1][0] - d_r[0]),
-                       p[2 * kk + 1][1] * (dp[2 * kk + 1][1] - d_r[0]));
-      a[3] = pack_bf16(p[2 * kk + 1][2] * (dp[2 * kk + 1][2] - d_r[1]),
-                       p[2 * kk + 1][3] * (dp[2 * kk + 1][3] - d_r[1]));
-#pragma unroll
-      for (int jp = 0; jp < DQK / 16; ++jp) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &kt[(kk * 16 + lrow) * QS + jp * 16 + lcol]);
-        mma_bf16(acc[2 * jp], a, r[0], r[1]);
-        mma_bf16(acc[2 * jp + 1], a, r[2], r[3]);
-      }
-    }
-    __syncthreads();   // this buffer is refilled next iteration
+    for (int kk = 0; kk < BKW / 16; ++kk)
+      wgmma_rs(dq_acc, da[kk], make_desc(k_tile + kk * 16 * L::RB, BKW * L::RB, 8 * L::RB, L::MODE));
+    if (next)
+      mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K + stage1 * BKW * L::RB,
+                      base + L::V + stage1 * V_TILE, boxes);
+    wgmma_commit();
+    // every turn of consumer 0 is answered by one of consumer 1, whose last
+    // turn passes nothing
+    if (cw == 0 || next) turn_pass(cw);
+    wgmma_wait_all();
+    reg_fence(dq_acc);
+    reg_fence(s);
+    reg_fence(dp);
+    mbar_arrive(empty + 8 * stage);
+    if (next) ds_fragments(da, s, dp, l_r, d_r, (j + 1) * BKW, n, t);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
+    const int row = row0 + wl * 16 + g + 8 * h;
     if (row >= n) continue;
-    bf16* qrow = dq + ((size_t)b * n + row) * dqk;
+    bf16* qrow = dq_img + (size_t)row * dqk;
 #pragma unroll
-    for (int jt = 0; jt < DQK / 8; ++jt)
-      if (jt * 8 < dqk)
-        *reinterpret_cast<__nv_bfloat162*>(qrow + jt * 8 + 2 * t) =
-            __floats2bfloat162_rn(acc[jt][2 * h], acc[jt][2 * h + 1]);
+    for (int c = 0; c < DQK / 8; ++c)
+      if (c * 8 < dqk)
+        *reinterpret_cast<__nv_bfloat162*>(qrow + c * 8 + 2 * t) =
+            __floats2bfloat162_rn(dq_acc[4 * c + 2 * h], dq_acc[4 * c + 2 * h + 1]);
+  }
+}
+
+// q, k, v and do come in through tensor maps over (B, n, d): boxes of (DQK,
+// 128, 1) for q, (DQK, BKW, 1) for k, (64, BKW, 1) for v and (64, 128, 1)
+// for do.
+template <int DQK>
+__global__ void __launch_bounds__(NT, 1)
+attn_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+              const float* __restrict__ lse, const float* __restrict__ di,
+              bf16* __restrict__ dq, int n, int dqk, int dv) {
+  using L = Layout<DQK>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES, qdo_full = empty + 8 * STAGES;
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQW;
+  const int boxes = (dv + 63) / 64;   // v and do boxes wholly past d_v are not loaded
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(qdo_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The two roles' paths must never meet again (not even in a shared trap
+  // block), or setmaxnreg no longer sets the consumers' register budget.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: stage j waits until the consumers have released tile j - STAGES
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qdo_full, BQW * L::RB + boxes * DO_BOX);
+      tma_load(base + L::Q, &tq, 0, q0, b, qdo_full);
+      for (int c = 0; c < boxes; ++c)
+        tma_load(base + L::DO + c * DO_BOX, &tdo, 64 * c, q0, b, qdo_full);
+      for (int j = 0; j < (n + BKW - 1) / BKW; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, BKW * L::RB + boxes * V_BOX);
+        tma_load(base + L::K + s * BKW * L::RB, &tk, 0, j * BKW, b, full + 8 * s);
+        for (int c = 0; c < boxes; ++c)
+          tma_load(base + L::V + s * V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;
+    consume_queries<DQK>(base, cw, full, empty, qdo_full, n, boxes, lse + (size_t)b * n,
+                         di + (size_t)b * n, dq + (size_t)b * n * dqk, q0 + cw * 64, dqk);
   }
 }
 
@@ -265,6 +490,7 @@ attn_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ty + 16a and d_qk columns tx + 16c.
 
 constexpr int BQ_F32 = 64;
+constexpr int BK = 64;   // keys per tile
 constexpr int PS = BK + 1;
 
 __global__ void __launch_bounds__(256, 1)
@@ -385,28 +611,67 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* di, void* dq, int B, int n, int dqk, int dv,
-                cudaStream_t st) {
-  const int smem = (BQ_BF16 * (DQK + 8) + BQ_BF16 * (DV + 8) + 2 * BK * (DQK + 8) +
-                    2 * BK * (DV + 8)) * 2;
-  auto kernel = attn_dq_bf16<DQK, DV>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BQ_BF16 - 1) / BQ_BF16, 1, B);
-  kernel<<<grid, 256, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                                  lse, di, static_cast<bf16*>(dq), n, dqk, dv);
-  return static_cast<int>(cudaGetLastError());
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, so that the
+// library links no libcuda; null if the driver has none.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a contiguous bf16 (B, n, d) tensor in boxes of (box_d,
+// box_rows, 1); what lies past n or d reads as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int n, int d, int box_d,
+                int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};   // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)box_d, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DQK>
-int launch_bf16_dv(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, void* dq, int B, int n, int dqk, int dv,
-                   cudaStream_t st) {
-  return dv <= 128 ? launch_bf16<DQK, 128>(q, k, v, dout, lse, di, dq, B, n, dqk, dv, st)
-                   : launch_bf16<DQK, 256>(q, k, v, dout, lse, di, dq, B, n, dqk, dv, st);
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* di, void* dq, int B, int n, int dqk, int dv,
+                 cudaStream_t st) {
+  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, B, n, dqk, DQK, BQW, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, DQK, BKW, swz_qk) ||
+      !tensor_map(&tv, v, B, n, dv, 64, BKW, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tdo, dout, B, n, dv, 64, BQW, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Layout<DQK>::BYTES;
+  auto kernel = attn_dq_wgmma<DQK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + BQW - 1) / BQW, B);
+  kernel<<<grid, NT, smem, st>>>(tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dq), n, dqk, dv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -425,9 +690,9 @@ extern "C" int spatial_attention_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (dtype == 1) {
-    if (dqk <= 16) return launch_bf16_dv<16>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
-    if (dqk <= 32) return launch_bf16_dv<32>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
-    return launch_bf16_dv<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
+    if (dqk <= 16) return launch_wgmma<16>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
+    if (dqk <= 32) return launch_wgmma<32>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
+    return launch_wgmma<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BQ_F32 * (dqk + 1) + 2 * BK * (dv + 1) + BQ_F32 * PS + 2 * BQ_F32) * 4;

@@ -5,6 +5,8 @@ and the einsum core, the autograd.Function on the CPU, and
 flax modules on converted weights with non-zero gains. Inputs from a numpy
 seed; JAX on the CPU."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,17 +86,17 @@ def _jax_flash_blocks(q, k, v, block):
     return o.transpose(0, 2, 1, 3).reshape(b, n, heads * 128)
 
 
-@pytest.mark.parametrize("shape, block", [((1, 512, 16, 128), None), ((1, 640, 32, 256), 128)])
-def test_bf16_contract_backward_matches_jax_flash_kernel(shape, block):
-    """The contract versions of dK/dV and dQ (p and ds rounded to bf16, sums
-    in float64) against the Pallas flash backward run in bf16 in interpret
-    mode on the same bf16 inputs: flash_spatial_attention at (1, 512) with
-    one 128-wide head, and the library kernel in 128-blocks at n = 640 with
-    two heads. Both sides round each output once, and the library rounds ds
-    once per head (twice at d_v = 256) where the contract rounds it once:
-    the tolerance is one bf16 rounding of each output's largest value."""
-    import functools
+FLASH_BWD_CASES = [((1, 512, 16, 128), None), ((1, 640, 32, 256), 128)]
 
+
+@functools.cache
+def _jax_flash_bwd_bf16(shape, block):
+    """The Pallas flash backward run in bf16 in interpret mode: at (1, 512)
+    flash_spatial_attention with one 128-wide head, at n = 640 the library
+    kernel in 128-blocks with two heads. Returns the bf16 inputs (q, k, v,
+    do) as torch tensors, the forward's residuals lse (of the logits) and
+    di = sum(o * do) of the bf16 o, and the library's (dq, dk, dv) in
+    float32 numpy."""
     import jax.experimental.pallas.tpu as pltpu
 
     q, k, v, g = _qkv(shape, seed=4)
@@ -105,16 +107,122 @@ def test_bf16_contract_backward_matches_jax_flash_kernel(shape, block):
         o, vjp = jax.vjp(fn, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
         want = vjp(jnp.asarray(g, jnp.bfloat16))
     tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
-    # the forward's residuals: lse of the logits, di = sum(o * do) of the bf16 o
     lse = torch.logsumexp(tq.double() @ tk.double().transpose(1, 2), -1).float()
     di = (torch.from_numpy(np.array(o.astype(jnp.float32))) * tg.float()).sum(-1)
+    return (tq, tk, tv, tg), lse, di, [np.asarray(w.astype(jnp.float32)) for w in want]
+
+
+@pytest.mark.parametrize("shape, block", FLASH_BWD_CASES)
+def test_bf16_contract_backward_matches_jax_flash_kernel(shape, block):
+    """The contract versions of dK/dV and dQ (p and ds rounded to bf16, sums
+    in float64) against the Pallas flash backward run in bf16 in interpret
+    mode on the same bf16 inputs: flash_spatial_attention at (1, 512) with
+    one 128-wide head, and the library kernel in 128-blocks at n = 640 with
+    two heads. Both sides round each output once, and the library rounds ds
+    once per head (twice at d_v = 256) where the contract rounds it once:
+    the tolerance is one bf16 rounding of each output's largest value."""
+    (tq, tk, tv, tg), lse, di, want = _jax_flash_bwd_bf16(shape, block)
     dk, dv = sa.spatial_attention_dkv_contract(tq, tk, tv, tg, lse, di)
     dq = sa.spatial_attention_dq_contract(tq, tk, tv, tg, lse, di)
     for name, got, w in zip("qkv", (dq, dk, dv), want):
         assert got.dtype == torch.bfloat16
-        w = np.asarray(w.astype(jnp.float32))
         err = np.abs(got.float().numpy() - w).max()
         assert err <= _bf16_ulp(np.abs(w).max()), (name, err)
+
+
+def _wgmma_dq_split(q, k, v, do, lse, di, mask_keys=True):
+    """The bf16 wgmma kernel of csrc/spatial_attention_dq.cu written out in
+    plain torch: blocks of 128 queries of one image (q and do zero past n,
+    lse +inf and di 0 there, as the kernel loads them); tiles of 64 keys, k
+    and v zero past n within the image (TMA's fill); s = q k^T and dp = do
+    v^T in float32; p = exp2(s log2e - lse log2e), keys past n masked to 0
+    by index (unless ``mask_keys`` is False); ds = p (dp - di) rounded to
+    bf16 element by element; dQ += ds k summed in float32 tile by tile in
+    key order. Returns that float32 value, which the epilogue casts once to
+    bf16; every row is written by exactly one block."""
+    log2e = 1.4426950408889634
+    b, n, dqk = q.shape
+    dv = v.shape[2]
+    bq, bk = 128, 64
+    nk = -(-n // bk)
+    out = torch.zeros((b, n, dqk))
+    written = torch.zeros((b, n), dtype=torch.int64)
+    for img in range(b):
+        kt, vt = torch.zeros((nk * bk, dqk)), torch.zeros((nk * bk, dv))
+        kt[:n], vt[:n] = k[img].float(), v[img].float()
+        for q0 in range(0, n, bq):
+            m = min(bq, n - q0)
+            qb, dob = torch.zeros((bq, dqk)), torch.zeros((bq, dv))
+            qb[:m], dob[:m] = q[img, q0:q0 + m].float(), do[img, q0:q0 + m].float()
+            lb, db = torch.full((bq,), float("inf")), torch.zeros(bq)
+            lb[:m], db[:m] = lse[img, q0:q0 + m] * log2e, di[img, q0:q0 + m]
+            acc = torch.zeros((bq, dqk))
+            for j in range(nk):
+                keys = slice(j * bk, (j + 1) * bk)
+                s = qb @ kt[keys].T
+                dp = dob @ vt[keys].T
+                if mask_keys:
+                    s[:, torch.arange(j * bk, (j + 1) * bk) >= n] = float("-inf")
+                p = torch.exp2(s * log2e - lb[:, None])
+                ds = (p * (dp - db[:, None])).to(torch.bfloat16).float()
+                acc += ds @ kt[keys]
+            out[img, q0:q0 + m] = acc[:m]
+            written[img, q0:q0 + m] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("shape, block", FLASH_BWD_CASES)
+def test_wgmma_dq_split_matches_jax_flash_kernel(shape, block):
+    """The dQ kernel's blocks, key tiles, masked p, ds rounded once and
+    float32 sums in key order give the Pallas flash backward's dq (bf16, in
+    interpret mode) on the same bf16 inputs, within one bf16 rounding of its
+    largest value (the library rounds ds once per head)."""
+    (tq, tk, tv, tg), lse, di, want = _jax_flash_bwd_bf16(shape, block)
+    got = _wgmma_dq_split(tq, tk, tv, tg, lse, di).to(torch.bfloat16).float().numpy()
+    assert np.abs(got - want[0]).max() <= _bf16_ulp(np.abs(want[0]).max())
+
+
+def _bf16_bwd_inputs(shape, seed, logit_shift=0.0):
+    """bf16 (q, k, v, do) from a numpy seed (q, k scaled by 0.5) and the
+    forward's lse and di. ``logit_shift`` (-100 at most) adds one column,
+    q 10 and k logit_shift / 10, in place of the last: every logit, and so
+    lse, moves by logit_shift."""
+    q, k, v, g = _qkv(shape, seed=seed)
+    q, k = q * 0.5, k * 0.5
+    if logit_shift:
+        q[..., -1], k[..., -1] = 10.0, logit_shift / 10
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+    o, lse = sa.spatial_attention_forward(tq, tk, tv)
+    return (tq, tk, tv, tg), lse, (o.float() * tg.float()).sum(-1)
+
+
+def _held_to_contract(got, args, lse, di):
+    want = sa.spatial_attention_dq_contract(*args, lse, di).float()
+    err = float((got.to(torch.bfloat16).float() - want).abs().max())
+    assert err <= float(_bf16_ulp(want.abs().max().numpy())), err
+
+
+@pytest.mark.parametrize("n", [127, 129])
+def test_wgmma_dq_split_matches_contract_at_ragged_n(n):
+    """Three images whose n is not a multiple of the 64-key tile or the
+    128-query block, d_qk 24 (padded to 32 by the kernel): the split within
+    one bf16 rounding of the contract version's largest value."""
+    args, lse, di = _bf16_bwd_inputs((3, n, 24, 72), seed=7)
+    _held_to_contract(_wgmma_dq_split(*args, lse, di), args, lse, di)
+
+
+def test_wgmma_dq_split_needs_the_key_mask():
+    """With every logit shifted by -100, lse < -88: a zero-filled key past n
+    (s = 0) then has p = exp2(-lse log2e) = inf in float32, and ds k = inf x 0
+    is NaN. Masking p by key index keeps dQ finite and on the contract; the
+    zero fill alone does not."""
+    args, lse, di = _bf16_bwd_inputs((2, 129, 24, 40), seed=8, logit_shift=-100.0)
+    assert (lse < -88).all()
+    assert _wgmma_dq_split(*args, lse, di, mask_keys=False).isnan().any()
+    got = _wgmma_dq_split(*args, lse, di)
+    assert torch.isfinite(got).all()
+    _held_to_contract(got, args, lse, di)
 
 
 @pytest.mark.parametrize("acc", [torch.float64, torch.float32])

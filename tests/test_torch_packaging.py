@@ -263,3 +263,21 @@ def test_dw_probe_variants_apply_to_the_kernel_source():
         assert variant == "base" or edited != source
         for old, _ in probe.EDITS[variant.split("+")[0]]:
             assert source.count(old) == 1, (variant, old)
+
+
+def test_dq_probe_variants_apply_to_the_kernel_source():
+    """The same for scripts/probe_torch_dq.py and csrc/spatial_attention_dq.cu:
+    every edit of every variant (joined ones too) finds its text exactly
+    once, so that it changes the wgmma kernel and nothing else."""
+    spec = importlib.util.spec_from_file_location("probe_torch_dq",
+                                                  REPO_ROOT / "scripts" / "probe_torch_dq.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    source = (REPO_ROOT / PKG / "csrc" / "spatial_attention_dq.cu").read_text()
+    assert probe.variant_source(source, "base") == source
+    for variant in [*probe.EDITS, *probe.DEFAULT]:
+        edited = probe.variant_source(source, variant)
+        assert variant == "base" or edited != source
+        for name in variant.split("+"):
+            for old, _ in probe.EDITS[name]:
+                assert source.count(old) == 1, (variant, old)
