@@ -92,6 +92,29 @@ Phases, one line each:
               a served batch and of a warmup step of each, with the device's
               busy time and idle share.
 
+8. attention_widths - variant generators at ngf 8, 40 and 96 (d_qk 4, 20,
+              48; d_v 32, 160, 384), full depth, 256^2: one served batch of 4
+              and one bf16 train step at batch 4 each, asserting the launches
+              of each attention route (ngf 8 and 40 padded, 96 split:
+              2 x 192); the routed core at (4, 4096, d_qk, d_v) against its
+              plain version: float32 to the kernels' tolerances, bf16 forward
+              by the forward's rule, bf16 backward by bf16_backward_check,
+              the split route's dK and dQ within one bf16 rounding of each
+              chunk's largest value plus one of the sum's (each chunk's
+              output is rounded, then their float32 sum once more); the split
+              forward and backward at (12, 4096, 48, 384) timed beside SDPA;
+9. train_run - train_cut on the flagship config (batch 12, 256^2, random
+              weights from the config's seed) from a seeded folder of 60
+              photo and 40 Monet JPEGs: 240 steps, an async checkpoint every
+              80 (keep_last_n 2), a JSON line every 40; then --resume auto
+              with max_steps 320. Asserts the checkpoint files, that
+              latest_checkpoint picks ckpt_final, that the state restored
+              from it equals the saved one bitwise, the resumed loader's
+              first batch indices, 54/54/54 trunk launches on every step,
+              finite losses in every CSV row and JSON line; prints steps/s,
+              the share of the loop's wall time spent in next(loader), the
+              async and synchronous save times and the checkpoint's size.
+
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON (each row's times and bound at the shape its
 `launches` run at: the trunk forward's at the train step's batch 12, with
@@ -226,10 +249,11 @@ def uniform_conv(rng, kh, c_in, c_out, fan_in):
             "bias": rng.uniform(-bound, bound, (c_out,)).astype(np.float32)}
 
 
-def flagship_params(rng: np.random.Generator) -> dict:
-    """The JAX generator's param tree at the flagship width, with PyTorch's
-    default init bounds U(+-1/sqrt(fan_in))."""
-    ngf, n_down, n_blocks = FLAGSHIP["ngf"], FLAGSHIP["n_downsampling"], FLAGSHIP["n_blocks"]
+def flagship_params(rng: np.random.Generator, ngf: int = FLAGSHIP["ngf"]) -> dict:
+    """The JAX generator's param tree at the flagship depth and width ``ngf``
+    (the flagship's by default), with PyTorch's default init bounds
+    U(+-1/sqrt(fan_in))."""
+    n_down, n_blocks = FLAGSHIP["n_downsampling"], FLAGSHIP["n_blocks"]
     conv = lambda kh, c_in, c_out, fan_in: uniform_conv(rng, kh, c_in, c_out, fan_in)
     params = {"initial_conv": conv(7, 3, ngf, 49 * 3)}
     for i in range(n_down):
@@ -1028,13 +1052,13 @@ def phase_attention_autograd(gen) -> None:
     check(max(rels) <= 1e-4, f"attention gradients differ from autograd: {rels}")
 
 
-def variant_params(rng: np.random.Generator) -> dict:
-    """The JAX variant generator's param tree at the flagship width: the
-    flagship trunk plus attn_3, attn_7, channel_attn_5 and nine style gates,
-    with non-zero gains (at init every variant block is an identity and the
-    attention core gets no gradient)."""
-    params = flagship_params(rng)
-    c = FLAGSHIP["ngf"] * 2 ** FLAGSHIP["n_downsampling"]
+def variant_params(rng: np.random.Generator, ngf: int = FLAGSHIP["ngf"]) -> dict:
+    """The JAX variant generator's param tree at the flagship depth and width
+    ``ngf``: the trunk plus attn_3, attn_7, channel_attn_5 and nine style
+    gates, with non-zero gains (at init every variant block is an identity
+    and the attention core gets no gradient)."""
+    params = flagship_params(rng, ngf)
+    c = ngf * 2 ** FLAGSHIP["n_downsampling"]
     for i in VARIANT_G["attn_layers"]:
         params[f"attn_{i}"] = {name: uniform_conv(rng, 1, c, width, c)
                                for name, width in (("query", c // 8), ("key", c // 8),
@@ -1382,6 +1406,382 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
                  "train_step_variant_profile", rows=30, kind="warmup")
     return {"times": times, "library": library}
 
+# --------------------------------------------------------------------------- #
+# attention widths: variant generators whose attention the kernels take
+# through a route (ops/kernels/spatial_attention.py::attention_route)
+
+# ngf: (route, chunks) that the attention's forward launches must be
+# counted under, written out from the kernels' limits (d_qk and d_v
+# multiples of 8, d_v <= 256), not read off ``attention_route``
+WIDTH_ROUTES = {8: ("padded", 1),       # d_qk 4 -> 8, d_v 32
+                40: ("padded", 1),      # d_qk 20 -> 24, d_v 160
+                96: ("split", 2)}       # d_qk 48, d_v 384 -> 2 x 192
+WIDTH_NGFS = tuple(WIDTH_ROUTES)
+WIDTH_BATCH = 4
+SPLIT_SHAPE = (12, 4096, 48, 384)       # the ngf-96 variant's core at batch 12
+
+
+def routed_grads(fn, q, k, v, do):
+    """(o, (dq, dk, dv)) of ``fn`` by autograd."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, do)
+    return o.detach(), grads
+
+
+def split_contract(sa, q, k, v, do, o, width):
+    """The contract version of the split route: each column chunk of v takes
+    the contract backward (float64 sums, the kernels' bf16 rounding points)
+    with its own di; dV is the chunks side by side, dK and dQ their sums in
+    float64. Returns ((dq, dk, dv), the bf16 tolerance of each): one
+    rounding of each chunk's largest value (each chunk's kernel output is
+    rounded to bf16) plus one of the sum's (the sum is cast once). dV keeps
+    the one rounding of the unsplit check."""
+    lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2), dim=-1)
+    sums = {"dq": 0.0, "dk": 0.0}
+    tol = {"dq": 0.0, "dk": 0.0}
+    dvs = []
+    for c in range(0, v.shape[2], width):
+        v_c, do_c, o_c = (t[..., c:c + width].contiguous() for t in (v, do, o))
+        di = (o_c.float() * do_c.float()).sum(-1)
+        dq_c = per_image(lambda *a: (sa.spatial_attention_dq_contract(*a),), q, k, v_c, do_c,
+                         lse, di)[0]
+        dk_c, dv_c = per_image(sa.spatial_attention_dkv_contract, q, k, v_c, do_c, lse, di)
+        for name, t in (("dq", dq_c), ("dk", dk_c)):
+            sums[name] = sums[name] + t.double()
+            tol[name] += float(bf16_ulp(t.float().abs().max()))
+        dvs.append(dv_c)
+    dv = torch.cat(dvs, dim=2)
+    for name in tol:
+        tol[name] += float(bf16_ulp(sums[name].float().abs().max()))
+    tol["dv"] = float(bf16_ulp(dv.float().abs().max()))
+    return (sums["dq"], sums["dk"], dv), tol
+
+
+def phase_attention_widths(gen, rng) -> dict:
+    """Variant generators at ngf 8, 40 and 96 (full depth, 256^2): one served
+    batch of 4 and one bf16 train step at batch 4 each, the launches of each
+    route asserted; then the routed core at each width (4, 4096, d_qk, d_v)
+    against its plain version, and the split route timed beside SDPA."""
+    from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
+    from gan_variant_research_tpu_torch.convert import generator_state_dict_from_jax
+    from gan_variant_research_tpu_torch.core.precision import DEFAULT_POLICY
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer, build_generator
+
+    b, s = WIDTH_BATCH, 256
+    u8 = lambda: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda()
+    routes_seen = dict.fromkeys(sa.ATTN_ROUTES, 0)
+    for ngf in WIDTH_NGFS:
+        c = ngf * 2 ** FLAGSHIP["n_downsampling"]
+        d_qk, d_v = c // 8, c
+        route, chunks = WIDTH_ROUTES[ngf]
+        _, dqk_pad, width, _ = sa.attention_route(d_qk, d_v)
+        gcfg = dict(FLAGSHIP, ngf=ngf, **VARIANT_G)
+        net = build_generator(gcfg, DEFAULT_POLICY)
+        net.load_state_dict(generator_state_dict_from_jax(variant_params(rng, ngf)))
+        net = net.to("cuda").eval()
+        photos = u8()
+        torch.cuda.synchronize()
+        sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
+        reset_attn_counts(sa)
+        out = stylize_batch(net, photos)
+        torch.cuda.synchronize()
+        want = ATTN_BLOCKS * chunks
+        served = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
+        check(served == (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: want}), (want, 0, 0)),
+              f"ngf {ngf}: a served batch launched {served}, want {want} on {route}")
+        check(out.dtype == torch.uint8 and tuple(out.shape) == (b, s, s, 3)
+              and float(out.float().std()) > 1.0, f"ngf {ngf}: served {out.dtype} "
+              f"{tuple(out.shape)} std {float(out.float().std())}")
+        with plain_path(resblock, sa):
+            plain_out = stylize_batch(net, photos)
+        level = (out.int() - plain_out.int()).abs()
+        del net, out, plain_out
+
+        cfg = copy.deepcopy(VARIANT_CUT)
+        cfg["model"]["generator"]["ngf"] = ngf
+        cfg["batch_size"] = b
+        trainer = CUTTrainer(cfg)
+        state = trainer.state_from_jax(variant_params(rng, ngf), flagship_d_params(rng),
+                                       device="cuda")
+        monets = u8()
+        torch.cuda.synchronize()
+        sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
+        reset_attn_counts(sa)
+        state, losses = trainer.train_step(state, photos, monets, step=1)
+        torch.cuda.synchronize()
+        want_step = 3 * ATTN_BLOCKS * chunks
+        stepped = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
+        check(stepped == (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: want_step}),
+                          (want_step,) * 3),
+              f"ngf {ngf}: a train step launched {stepped}, want {want_step} on {route}")
+        vals = {k: float(v) for k, v in losses.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"ngf {ngf}: non-finite losses {vals}")
+        routes_seen[route] += served[0][route] + stepped[0][route]
+        phase("attention_widths", model=f"resnet9-ngf{ngf}-9blocks+attn[3,7]+chattn[5]+style",
+              d_qk=d_qk, d_v=d_v, route=route, kernel_d_qk=dqk_pad, chunk_width=width,
+              chunks=chunks, serve_batch=b, serve_route_launches=served[0][route],
+              serve_uint8_vs_plain_max_levels=int(level.max()),
+              step_route_launches=stepped[0][route],
+              step_fwd_dkv_dq="/".join(map(str, stepped[1])),
+              **{k: f"{v:.5f}" for k, v in vals.items() if k in ("d_loss", "g_loss", "nce")})
+        del trainer, state, losses, photos, monets
+        torch.cuda.empty_cache()
+    check(routes_seen["padded"] > 0 and routes_seen["split"] > 0,
+          f"the padded and split routes were not both launched: {routes_seen}")
+
+    # the routed core at each width against its plain version
+    for ngf in WIDTH_NGFS:
+        c = ngf * 2 ** FLAGSHIP["n_downsampling"]
+        shape = (b, 4096, c // 8, c)
+        route, _, width, chunks = sa.attention_route(c // 8, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = attention_inputs(shape, dtype, gen)
+            o, grads = routed_grads(sa.spatial_attention, q, k, v, do)
+            o_p, grads_p = routed_grads(sa.spatial_attention_reference, q, k, v, do)
+            fields = {}
+            if dtype == torch.float32:
+                for name, a, p_, rel in (("o", o, o_p, 1e-5), *(
+                        (n_, a_, b_, 1e-4) for n_, a_, b_ in zip(("dq", "dk", "dv"),
+                                                                 grads, grads_p))):
+                    d, scale = float((a - p_).abs().max()), float(p_.abs().max())
+                    fields[f"{name}_rel_to_max"] = f"{d / scale:.3e}"
+                    check(d <= rel * scale, f"routed {route} {shape} fp32 {name}: {d} over "
+                          f"{rel * scale}")
+            else:
+                f32 = [t.float() for t in (q, k, v, do)]
+                o_t, grads_t = routed_grads(sa.spatial_attention_reference, *f32)
+                e_k, e_p = float((o.float() - o_t).abs().max()), float((o_p.float() - o_t)
+                                                                        .abs().max())
+                fields.update(o_err_vs_f32=f"{e_k:.3e}", o_plain_err_vs_f32=f"{e_p:.3e}")
+                check(e_k <= 2 * e_p + 1e-6 * float(o_t.abs().max()),
+                      f"routed {route} {shape} bf16 o: {e_k} from float32, the plain {e_p}")
+                if chunks == 1:
+                    lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2), dim=-1)
+                    di = (o.float() * do.float()).sum(-1)
+                    dq_c, = per_image(lambda *a: (sa.spatial_attention_dq_contract(*a),),
+                                      q, k, v, do, lse, di)
+                    dk_c, dv_c = per_image(sa.spatial_attention_dkv_contract, q, k, v, do,
+                                           lse, di)
+                    contract = (dq_c, dk_c, dv_c)
+                    tols = None
+                else:
+                    contract, tols = split_contract(sa, q, k, v, do, o, width)
+                for name, a, con, p_, t in zip(("dq", "dk", "dv"), grads, contract, grads_p,
+                                               grads_t):
+                    verdict = bf16_backward_check(a, con, p_, t)
+                    if tols is not None:   # the split route's tolerance (split_contract)
+                        verdict["vs_contract_tol"] = tols[name]
+                        verdict["ok"] = (verdict["vs_contract_max"] <= tols[name]
+                                         and verdict["rms_vs_f32"] <= 2 * verdict[
+                                             "plain_rms_vs_f32"])
+                    fields.update({f"{name}_{k_}": f"{v_:.3e}" for k_, v_ in verdict.items()
+                                   if k_ != "ok"})
+                    check(verdict["ok"], f"routed {route} {shape} bf16 {name}: {verdict}")
+            phase("kernel", name="spatial_attention_routed", route=route,
+                  shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1], **fields)
+            del q, k, v, do, o, grads, o_p, grads_p
+            torch.cuda.empty_cache()
+
+    # the split route at batch 12, forward and backward, beside SDPA
+    q, k, v, do = attention_inputs(SPLIT_SHAPE, torch.bfloat16, gen)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_k, o_l = sa.spatial_attention(*leaves), sdpa(*leaves)
+    times = {
+        "fwd": event_ms(lambda: sa.spatial_attention(q, k, v), iters=10),
+        "bwd": event_ms(lambda: torch.autograd.grad(o_k, leaves, do, retain_graph=True),
+                        iters=10),
+        "sdpa_fwd": event_ms(lambda: sdpa(q, k, v), iters=10),
+        "sdpa_bwd": event_ms(lambda: torch.autograd.grad(o_l, leaves, do, retain_graph=True),
+                             iters=10)}
+    flops, nbytes = attention_flops(SPLIT_SHAPE), attention_bytes(SPLIT_SHAPE, 2)
+    bounds = {"fwd": bound_ms(flops["fwd"], nbytes["fwd"], PEAK_BF16_FLOPS),
+              "bwd": bound_ms(flops["dkv"] + flops["dq"], nbytes["dkv"] + nbytes["dq"],
+                              PEAK_BF16_FLOPS)}
+    phase("timing", op="spatial_attention_split", shape="x".join(map(str, SPLIT_SHAPE)),
+          dtype="bf16", route=sa.attention_route(*SPLIT_SHAPE[2:])[0],
+          **{f"{k}_ms": f"{v:.4f}" for k, v in times.items()},
+          **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()})
+    del q, k, v, do, leaves, o_k, o_l
+    torch.cuda.empty_cache()
+    return {"routes": routes_seen, "split_times": times}
+
+
+# --------------------------------------------------------------------------- #
+# a training run: train_cut on the flagship config, checkpoints, resume
+
+RUN_STEPS, RUN_MORE, RUN_CKPT_EVERY, RUN_LOG_EVERY = 240, 80, 80, 40
+RUN_PHOTOS, RUN_MONETS = 60, 40
+
+
+def write_image_folder(folder: Path, count: int, rng: np.random.Generator) -> None:
+    """``count`` seeded 256x256 JPEGs: smooth colour fields with noise, so
+    that the decode does real work."""
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 255.0
+    for i in range(count):
+        a = rng.uniform(0, 1, (3, 3))
+        img = np.stack([a[c, 0] * yy + a[c, 1] * xx + a[c, 2] for c in range(3)], -1)
+        img = img / img.max() * 200 + rng.normal(0, 12, (256, 256, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            folder / f"{i:04d}.jpg", quality=90)
+
+
+def states_equal(a, b) -> list[str]:
+    """The names of the train-state parts where ``a`` and ``b`` differ in
+    any bit."""
+    diff = []
+    for part in ("g_params", "d_params", "ema"):
+        if any(not torch.equal(getattr(a, part)[n], getattr(b, part)[n])
+               for n in getattr(a, part)):
+            diff.append(part)
+    for part in ("opt_g", "opt_d"):
+        x, y = getattr(a, part), getattr(b, part)
+        if x.count != y.count or any(not torch.equal(x.mu[n], y.mu[n]) or
+                                     not torch.equal(x.nu[n], y.nu[n]) for n in x.mu):
+            diff.append(part)
+    if a.step != b.step:
+        diff.append("step")
+    if not np.array_equal(a.base_key, b.base_key):
+        diff.append("base_key")
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        diff.append("rng")
+    return diff
+
+
+def phase_train_run() -> dict:
+    """``train_cut`` on the flagship config (FLAGSHIP_CUT, batch 12, 256^2)
+    from a seeded JPEG folder: RUN_STEPS steps with an async checkpoint every
+    RUN_CKPT_EVERY (keep_last_n 2) and a JSON line every RUN_LOG_EVERY, then
+    ``--resume auto`` with max_steps raised by RUN_MORE."""
+    import shutil
+
+    from gan_variant_research_tpu_torch.data.loader import UnpairedLoader, _EpochStream
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.train import checkpoint as ck
+    from gan_variant_research_tpu_torch.train import loop
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
+
+    root = REPO / "build" / "train_run"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(5)
+    write_image_folder(root / "photo_jpg", RUN_PHOTOS, rng)
+    write_image_folder(root / "monet_jpg", RUN_MONETS, rng)
+    cfg = copy.deepcopy(FLAGSHIP_CUT)
+    cfg.update(max_steps=RUN_STEPS, prefetch_factor=4,
+               data={"photos_dir": str(root / "photo_jpg"),
+                     "monet_dir": str(root / "monet_jpg")},
+               output={"checkpoint_dir": str(root / "ckpt"), "log_dir": str(root / "logs")},
+               metrics={"save_checkpoint_every": RUN_CKPT_EVERY},
+               checkpoint={"keep_last_n": 2, "async_save": True},
+               log={"every_steps": RUN_LOG_EVERY, "verbose": False}, io={"num_workers": 8})
+
+    # every step's trunk launches, and the loader's first batch of each run
+    step_launches, first_indices = [], []
+    real_step, real_next = CUTTrainer.train_step, UnpairedLoader.__next__
+
+    def counted_step(self, *a, **kw):
+        before = counts(resblock)
+        out = real_step(self, *a, **kw)
+        step_launches.append(tuple(x - y for x, y in zip(counts(resblock), before)))
+        return out
+
+    def recorded_next(self):
+        out = real_next(self)
+        if len(first_indices) < len(runs) and self.last_indices is not None:
+            first_indices.append(self.last_indices)
+        return out
+
+    runs = []
+    CUTTrainer.train_step, UnpairedLoader.__next__ = counted_step, recorded_next
+    reset_counts(resblock)
+    try:
+        runs.append({})
+        state, trainer = loop.train_cut(cfg, device="cuda", stats=runs[0])
+        saved = sorted(p.name for p in (root / "ckpt").glob("*.msgpack"))
+        latest = ck.latest_checkpoint(root / "ckpt")
+        blob = ck.load_checkpoint(latest)
+        restored = trainer.state_from_payload(blob["payload"], blob["step"], device="cuda")
+        diff = states_equal(state, restored)
+        del restored, blob
+        cfg2 = dict(cfg, max_steps=RUN_STEPS + RUN_MORE)
+        runs.append({})
+        state2, _ = loop.train_cut(cfg2, resume="auto", device="cuda", stats=runs[1])
+    finally:
+        CUTTrainer.train_step, UnpairedLoader.__next__ = real_step, real_next
+    launches = counts(resblock)
+
+    want_files = [f"ckpt_step{s}.msgpack" for s in range(RUN_CKPT_EVERY, RUN_STEPS,
+                                                         RUN_CKPT_EVERY)][-2:]
+    check(saved == sorted(want_files + ["ckpt_final.msgpack"]),
+          f"checkpoints {saved}, want {sorted(want_files + ['ckpt_final.msgpack'])}")
+    check(latest == root / "ckpt" / "ckpt_final.msgpack", f"latest_checkpoint picked {latest}")
+    check(not diff, f"the restored state differs from the saved one in {diff}")
+    check(state2.step == RUN_STEPS + RUN_MORE, f"the resumed run ended at step {state2.step}")
+    streams = []
+    for seed, n in ((cfg["seed"], RUN_PHOTOS), (cfg["seed"] + 1, RUN_MONETS)):
+        st = _EpochStream(range(n), cfg["batch_size"], seed, None)
+        st.skip(RUN_STEPS)
+        streams.append(st.next_indices())
+    first = [_EpochStream(range(n), cfg["batch_size"], seed, None).next_indices()
+             for seed, n in ((cfg["seed"], RUN_PHOTOS), (cfg["seed"] + 1, RUN_MONETS))]
+    check(len(first_indices) == 2 and first_indices[0] == tuple(first)
+          and first_indices[1] == tuple(streams),
+          f"the resumed loader's first batch {first_indices[1:]} is not the stream's "
+          f"{streams}")
+    want = (3 * TRUNK_CONVS,) * 3
+    n_steps = RUN_STEPS + RUN_MORE
+    check(len(step_launches) == n_steps and all(x == want for x in step_launches),
+          f"{len(step_launches)} steps; launches other than {want}: "
+          f"{sorted(set(step_launches) - {want})}")
+    check(launches == (n_steps * want[0],) * 3, f"train run launched {launches}")
+    with open(root / "logs" / "losses_history.csv") as f:
+        rows = f.read().splitlines()[1:]
+    losses = [float(x) for r in rows for x in r.split(",")[1:]]
+    check(len(rows) == n_steps and all(np.isfinite(losses)),
+          f"{len(rows)} CSV rows, want {n_steps}, all finite")
+    lines = (root / "logs" / "train_log.txt").read_text().splitlines()
+    logged = [json.loads(line.split(": ", 1)[1]) for line in lines]
+    check(len(logged) == n_steps // RUN_LOG_EVERY
+          and all({"d_loss", "g_loss", "images_per_sec", "step_time_ms"} <= set(d)
+                  and all(np.isfinite(v) for v in d.values()) for d in logged),
+          f"{len(logged)} JSON lines, want {n_steps // RUN_LOG_EVERY} with finite losses, "
+          "images_per_sec and step_time_ms")
+
+    final = root / "ckpt" / "ckpt_final.msgpack"
+    n_leaves = sum(t.numel() for part in ("g_params", "d_params", "ema")
+                   for t in getattr(state2, part).values()) + sum(
+        t.numel() for opt in (state2.opt_g, state2.opt_d) for m in (opt.mu, opt.nu)
+        for t in m.values())
+    saves = [x for r in runs for x in r["saves"]]
+    async_s = [t for kind, _, t in saves if kind == "async"]
+    sync_s = [t for kind, _, t in saves if kind == "sync"]
+    wall = sum(r["wall_s"] for r in runs)
+    wait = sum(r["loader_wait_s"] for r in runs)
+    out = {"steps": n_steps, "steps_per_s": n_steps / wall, "loader_wait_share": wait / wall,
+           "async_save_s": async_s, "sync_save_s": sync_s,
+           "checkpoint_bytes": final.stat().st_size, "float32_leaves": n_leaves,
+           "launches": launches}
+    phase("train_run", model="cut-resnet9-ngf64+patchgan-ndf64", dtype="bf16",
+          batch=cfg["batch_size"], steps=f"{RUN_STEPS}+{RUN_MORE}",
+          launches_fwd_dx_dw="/".join(map(str, launches)), checkpoints=",".join(saved),
+          resumed_from=RUN_STEPS,
+          steps_per_s=f"{out['steps_per_s']:.3f}",
+          run_steps_per_s="/".join(f"{r['steps'] / r['wall_s']:.3f}" for r in runs),
+          loader_wait_share=f"{out['loader_wait_share']:.4f}",
+          async_save_s="/".join(f"{t:.3f}" for t in async_s),
+          sync_save_s="/".join(f"{t:.3f}" for t in sync_s),
+          checkpoint_mb=f"{out['checkpoint_bytes'] / 1e6:.1f}", float32_leaves=n_leaves,
+          restored_bitwise=not diff, csv_rows=len(rows), json_lines=len(logged))
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1421,6 +1821,12 @@ def main() -> int:
     # 7. timing
     conv_ms, grad_ms = phase_timing(gen, rng, net, trainer, state, batches)
     attn = phase_timing_variant(gen, rng, vnet, vtrainer, vstate, vbatches)
+    del net, trainer, state, batches, vnet, vtrainer, vstate, vbatches
+    torch.cuda.empty_cache()
+
+    # 8. attention widths, 9. a training run, each with its counts set to 0
+    phase_attention_widths(gen, np.random.default_rng(11))
+    run = phase_train_run()
 
     bf16 = torch.bfloat16
     serve_shape = (TIME_BATCH, 64, 64, 256)
@@ -1460,13 +1866,14 @@ def main() -> int:
             serve_shape=list(serve_shape), serve_launches=serve_launches,
             serve_ms=conv_ms[TIME_BATCH]["kernel"], serve_plain_ms=conv_ms[TIME_BATCH]["plain"],
             serve_bound_ms=fwd_bound(serve_shape)[0],
-            serve_library_ms=conv_ms[TIME_BATCH]["cudnn_bf16"]),
+            serve_library_ms=conv_ms[TIME_BATCH]["cudnn_bf16"],
+            train_run_launches=run["launches"][0]),
         row("reflect_conv3x3_dx", resblock_py.format(229), train_launches[1],
             errs[("dx", TRAIN_SHAPE, bf16)], grad_ms["dx"][0], grad_ms["dx"][1],
-            conv_bounds["dx"], grad_ms["dx"][2]),
+            conv_bounds["dx"], grad_ms["dx"][2], train_run_launches=run["launches"][1]),
         row("reflect_conv3x3_dw", resblock_py.format(297), train_launches[2],
             errs[("dw", TRAIN_SHAPE, bf16)], grad_ms["dw"][0], grad_ms["dw"][1],
-            conv_bounds["dw"], grad_ms["dw"][2]),
+            conv_bounds["dw"], grad_ms["dw"][2], train_run_launches=run["launches"][2]),
         row("spatial_attention", flash_py.format(758), attn_launches[0],
             errs[("fwd", ATTN_SHAPE, bf16)], times["fwd"][0], times["fwd"][1],
             attn_bounds["fwd"], attn["library"]["fwd"]),

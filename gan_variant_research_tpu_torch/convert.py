@@ -14,6 +14,8 @@ names, so the mapping is one to one:
   OIHW, bias as is) and the scalar ``attn_i/gamma``;
   ``channel_attn_i/fc{1,2}`` (Dense ``kernel`` (in, out) -> ``weight``
   (out, in), bias as is); ``style_gate_i/{gamma,beta}`` as they are.
+
+``jax_tree_from_state_dict`` is the inverse, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -133,3 +135,41 @@ def discriminator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
             if node:
                 raise ValueError(f"{scale}/{conv} has leaves the port cannot map: {sorted(node)}")
     return sd
+
+
+# --------------------------------------------------------------------------- #
+# the port's state_dicts -> JAX param trees (the checkpoint writer's layout)
+
+def _jax_leaf(module: str, name: str, t: torch.Tensor) -> tuple[str, torch.Tensor]:
+    """One port leaf -> (its JAX name, the float32 tensor in the JAX layout,
+    on the leaf's device): the inverse of the maps above. Transposes and
+    flips only, so exact. A leaf already in its JAX layout (a bias) is
+    returned as it is, not copied."""
+    t = t.detach().float()
+    if name == "weight" or name.endswith("_weight"):
+        jax_name = name[:-len("weight")] + "kernel"
+        if module.startswith("up_"):
+            t = t.permute(2, 3, 0, 1).flip(0, 1)
+        elif module.rsplit(".", 1)[-1] in ("fc1", "fc2"):
+            t = t.T
+        else:
+            t = t.permute(2, 3, 1, 0)
+        return jax_name, t.contiguous()
+    return name, t
+
+
+def jax_tree_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """A port ``state_dict`` (generator or discriminator, or any dict keyed
+    like one, e.g. Adam's moments) -> the JAX param tree as nested dicts of
+    float32 tensors on the leaves' device: what
+    ``generator_state_dict_from_jax`` and
+    ``discriminator_state_dict_from_jax`` map back."""
+    tree: dict = {}
+    for key, value in sd.items():
+        module, name = key.rsplit(".", 1)
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        jax_name, leaf = _jax_leaf(module, name, value)
+        node[jax_name] = leaf
+    return tree

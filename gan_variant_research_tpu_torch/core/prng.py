@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from gan_variant_research_tpu_torch.data.augment import AugmentDraws
@@ -119,3 +120,35 @@ def sample_step(gen: torch.Generator, batch: int, image_size: int, policy,
         style_nce=alphas(),
         style_idt=alphas(),
     )
+
+
+# --------------------------------------------------------------------------- #
+# the JAX run key a checkpoint carries (``base_key``)
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray) -> tuple:
+    """Threefry-2x32 with 20 rounds (Random123; ``jax._src.prng``), on
+    uint32 arrays."""
+    u32 = np.uint32
+    ks = (u32(k0), u32(k1), u32(k0) ^ u32(k1) ^ u32(0x1BD11BDA))
+    x0, x1 = x0.astype(u32) + ks[0], x1.astype(u32) + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << u32(r)) | (x1 >> u32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + u32(i + 1)
+    return x0, x1
+
+
+def jax_base_key(seed: int) -> np.ndarray:
+    """The key data (uint32 (2,)) of the run key that the JAX
+    ``CUTTrainer.init_state`` draws for ``seed``: ``jax.random.key(seed)``
+    is (0, seed) for a uint32 seed, split three ways (the partitionable
+    threefry split: counters (0, i)), and the run key is the third."""
+    with np.errstate(over="ignore"):
+        b0, b1 = _threefry2x32(0, int(seed) & 0xFFFFFFFF, np.zeros(3, np.uint32),
+                               np.arange(3, dtype=np.uint32))
+    return np.array([b0[2], b1[2]], dtype=np.uint32)

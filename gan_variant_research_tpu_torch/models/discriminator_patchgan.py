@@ -33,7 +33,7 @@ class PatchGANDiscriminator(nn.Module):
         super().__init__()
         if use_spectral_norm:
             raise NotImplementedError(
-                "spectral norm is not ported yet (ROADMAP.md Queue 1 item 7, "
+                "spectral norm is not ported yet (ROADMAP.md Queue 1, "
                 "'Variant losses and D options')")
         if norm not in ("none", "instance"):
             raise ValueError(f"Unknown discriminator norm: {norm!r}")

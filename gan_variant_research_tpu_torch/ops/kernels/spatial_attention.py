@@ -18,14 +18,29 @@ with ``sm_scale=1``, non-causal), and of the einsum core it replaces
   the row log-sum-exp of the logits, ``di`` (B, n) float32 is ``sum(o * do)``
   over d_v, taken outside the kernels as the library takes it.
 
-The kernels take one head: q and k are not padded to 128 and v is not split
-into 128-wide heads, which only the TPU kernel needs (the heads share the
-weights, so one head is the same function). Limits: 8 <= d_qk <= 64 and
-8 <= d_v <= 256, both multiples of 8, any n >= 1, B <= 65535; a CUDA
-tensor outside them raises. A CUDA tensor launches the kernel (built at
-first use) or raises; the plain versions serve CPU tensors.
+The kernels take one head. Their limits: 8 <= d_qk <= 64 and 8 <= d_v <=
+256, both multiples of 8, any n >= 1, B <= 65535; a CUDA tensor outside
+them raises in the wrappers. ``spatial_attention`` brings every width the
+JAX package runs with d_qk <= 64 to them, by shape only
+(``attention_route``), with the adaptations the JAX
+``flash_spatial_attention`` makes for its 128-wide heads, both exact:
+
+- ``padded``: d_qk and d_v zero-padded to the next multiple of 8 (at least
+  8), o sliced (zero columns add nothing to q k^T, do v^T or ``di``);
+- ``split``: d_v > 256 cut into ceil(d_v / 256) equal column chunks, each
+  a multiple of 8 (384 -> 2 x 192), run with the same q and k; o is their
+  concatenation; in the backward each chunk takes its own ``di_c = sum
+  over the chunk of o do``, dV is taken per chunk, dK and dQ are summed
+  over the chunks in float32 and cast once;
+- ``direct``: the kernels' own widths.
+
+d_qk > 64 (a variant generator wider than ngf 128) stays refused on the
+card. A CUDA tensor launches the kernel (built at first use) or raises; the
+plain versions serve CPU tensors, through the same routes.
 ``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES`` and ``ATTN_DQ_LAUNCHES`` count the
-kernel launches.
+kernel launches, ``ATTN_ROUTE_LAUNCHES`` the forward launches by the route
+the caller names (a raw call is ``direct``), both where the forward
+launches.
 
 ``spatial_attention_dkv_contract`` and ``spatial_attention_dq_contract`` are
 the backward as the library kernel rounds it (p and ds in the inputs' dtype,
@@ -39,11 +54,14 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 ATTN_LAUNCHES = 0
 ATTN_DKV_LAUNCHES = 0
 ATTN_DQ_LAUNCHES = 0
+ATTN_ROUTES = ("direct", "padded", "split")
+ATTN_ROUTE_LAUNCHES = dict.fromkeys(ATTN_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DQK, _MAX_DV, _MAX_BATCH = 64, 256, 65535
@@ -192,12 +210,15 @@ def spatial_attention_dq_contract(q, k, v, do, lse, di, acc=torch.float64):
 # --------------------------------------------------------------------------- #
 # kernel wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor
 
-def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              route: str = "direct") -> tuple[torch.Tensor, torch.Tensor]:
     """(o in q's dtype, lse (B, n) float32). On CUDA it launches
-    ``csrc/spatial_attention.cu`` on the current stream."""
+    ``csrc/spatial_attention.cu`` on the current stream and counts the
+    launch under ``route`` (one of ``ATTN_ROUTES``)."""
     global ATTN_LAUNCHES
     _check(q, k, v)
+    if route not in ATTN_ROUTES:
+        raise ValueError(f"route must be one of {ATTN_ROUTES}, got {route!r}")
     if q.device.type == "cpu":
         return _plain_forward(q, k, v)
     _check_cuda(q, k, v)
@@ -211,6 +232,7 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor,
                  b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "spatial_attention")
     ATTN_LAUNCHES += 1
+    ATTN_ROUTE_LAUNCHES[route] += 1
     return o, lse
 
 
@@ -267,36 +289,80 @@ def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
     return dq
 
 
+def _round8(d: int) -> int:
+    return max(8, -(-d // 8) * 8)
+
+
+def attention_route(d_qk: int, d_v: int) -> tuple[str, int, int, int]:
+    """(route, d_qk padded, chunk width, chunks) for the kernels: d_qk and
+    the chunk width are multiples of 8, the chunks cover d_v (zero columns
+    past it), at most ``_MAX_DV`` wide each."""
+    chunks = -(-d_v // _MAX_DV)
+    width = _round8(-(-d_v // chunks))
+    dqk = _round8(d_qk)
+    if chunks > 1:
+        route = "split"
+    elif (dqk, width) != (d_qk, d_v):
+        route = "padded"
+    else:
+        route = "direct"
+    return route, dqk, width, chunks
+
+
 class _SpatialAttention(torch.autograd.Function):
-    """The core with its hand-written backward (the library's custom VJP):
-    the cotangent is cast to q's dtype, ``di`` is its float32 product with
-    the saved output. Double backward is refused."""
+    """The core with its hand-written backward (the library's custom VJP),
+    on v cut into column chunks of ``width`` (one chunk but on the split
+    route; each chunk's forward launch counted under ``route``): the
+    cotangent is cast to q's dtype, each chunk's ``di`` is the
+    float32 product of its cotangent with its saved output; dK and dQ of
+    several chunks are summed in float32 and cast once. Double backward is
+    refused."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = spatial_attention_forward(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
+    def forward(ctx, q, k, v, width, route):
+        chunks = [c.contiguous() for c in v.split(width, dim=2)]
+        outs = [spatial_attention_forward(q, k, c, route) for c in chunks]
+        ctx.width = width
+        ctx.save_for_backward(q, k, *chunks, *(o for o, _ in outs), *(lse for _, lse in outs))
+        return outs[0][0] if len(outs) == 1 else torch.cat([o for o, _ in outs], dim=2)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(q.dtype).contiguous()
-        di = (o.float() * do.float()).sum(-1)
-        dq = dk = dv = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dk, dv = spatial_attention_dkv(q, k, v, do, lse, di)
-        if ctx.needs_input_grad[0]:
-            dq = spatial_attention_dq(q, k, v, do, lse, di)
-        return dq, dk, dv
+        q, k, *rest = ctx.saved_tensors
+        n = len(rest) // 3
+        chunks, outs, lses = rest[:n], rest[n:2 * n], rest[2 * n:]
+        do = do.to(q.dtype)
+        dq = dk = None
+        dvs = []
+        for c, o, lse, do_c in zip(chunks, outs, lses, do.split(ctx.width, dim=2)):
+            do_c = do_c.contiguous()
+            di = (o.float() * do_c.float()).sum(-1)
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                dk_c, dv_c = spatial_attention_dkv(q, k, c, do_c, lse, di)
+                dk = dk_c if dk is None else dk.float() + dk_c.float()
+                dvs.append(dv_c)
+            if ctx.needs_input_grad[0]:
+                dq_c = spatial_attention_dq(q, k, c, do_c, lse, di)
+                dq = dq_c if dq is None else dq.float() + dq_c.float()
+        dv = (dvs[0] if len(dvs) == 1 else torch.cat(dvs, dim=2)) if dvs else None
+        cast = lambda t: None if t is None else t.to(q.dtype)  # noqa: E731
+        return cast(dq), cast(dk), dv, None, None
 
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``softmax(q k^T) v``, differentiable in q, k and v: q, k (B, n, d_qk),
     v (B, n, d_v), one dtype (float32 or bfloat16); returns (B, n, d_v) in
-    q's dtype. On CUDA the forward and backward launch the Hopper kernels on
-    the current stream without synchronising; on the CPU they are the plain
-    versions."""
+    q's dtype. The route (``attention_route``) follows from d_qk and d_v
+    alone. On CUDA the forward and backward launch the Hopper kernels on
+    the current stream without synchronising, and each forward launch is
+    counted under its route; on the CPU they are the plain versions."""
     _check(q, k, v)
-    return _SpatialAttention.apply(q, k, v)
+    d_qk, d_v = q.shape[2], v.shape[2]
+    route, dqk, width, chunks = attention_route(d_qk, d_v)
+    if dqk != d_qk:
+        q, k = F.pad(q, (0, dqk - d_qk)), F.pad(k, (0, dqk - d_qk))
+    if width * chunks != d_v:
+        v = F.pad(v, (0, width * chunks - d_v))
+    o = _SpatialAttention.apply(q, k, v, width, route)
+    return o if width * chunks == d_v else o[..., :d_v]

@@ -28,22 +28,30 @@ parameters as dicts of tensors and the step calls the modules through
 place and returns the state. On CUDA every reflect trunk conv, forward and
 backward, runs on the hand-written kernels, whatever the config's
 ``use_pallas`` says.
+
+``checkpoint_payload`` / ``state_from_payload`` write and read the JAX
+trainer's checkpoint payload (``cut_trainer.py:735-773`` of the JAX
+package), so a checkpoint of either package restores in the other leaf for
+leaf; the port's RNG state rides under ``torch_rng``, which the JAX
+restore does not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from gan_variant_research_tpu_torch.convert import (
     discriminator_state_dict_from_jax,
     generator_state_dict_from_jax,
+    jax_tree_from_state_dict,
 )
 from gan_variant_research_tpu_torch.core import config as cfg_mod
 from gan_variant_research_tpu_torch.core.precision import FP32_POLICY, Policy, policy_from_config
-from gan_variant_research_tpu_torch.core.prng import StepDraws, sample_step
+from gan_variant_research_tpu_torch.core.prng import StepDraws, jax_base_key, sample_step
 from gan_variant_research_tpu_torch.data.augment import train_augment
 from gan_variant_research_tpu_torch.losses.adversarial import (
     discriminator_hinge_loss,
@@ -60,7 +68,7 @@ from gan_variant_research_tpu_torch.train.optim import AdamState, optimizer_from
 LOSS_KEYS = ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1",
              "identity_weight", "featmatch", "palette", "repulsion")
 
-_VARIANT_ITEM = "ROADMAP.md Queue 1 item 7, 'Variant losses and D options'"
+_VARIANT_ITEM = "ROADMAP.md Queue 1, 'Variant losses and D options'"
 
 
 def build_generator(gen_cfg: dict, policy: Policy,
@@ -112,7 +120,8 @@ def build_discriminator(disc_cfg: dict, policy: Policy,
 class CUTTrainState:
     """``g_params`` / ``d_params``: float32 leaf tensors keyed by the
     modules' ``state_dict`` names; ``ema`` the G shadow; ``rng`` the
-    generator of the step's draws, on the parameters' device."""
+    generator of the step's draws, on the parameters' device; ``base_key``
+    the JAX run key's data (uint32 (2,)), carried for the checkpoint."""
 
     step: int
     g_params: dict[str, torch.Tensor]
@@ -121,6 +130,7 @@ class CUTTrainState:
     opt_d: AdamState
     ema: dict[str, torch.Tensor]
     rng: torch.Generator
+    base_key: np.ndarray
 
 
 class CUTTrainer:
@@ -205,7 +215,56 @@ class CUTTrainer:
             step=0, g_params=g_params, d_params=d_params,
             opt_g=self.opt_g.init(g_params), opt_d=self.opt_d.init(d_params),
             ema=ema_init(g_params),
-            rng=torch.Generator(device=device).manual_seed(seed))
+            rng=torch.Generator(device=device).manual_seed(seed),
+            base_key=jax_base_key(seed))
+
+    # ------------------------------------------------------------------ #
+
+    def checkpoint_payload(self, state: CUTTrainState) -> dict:
+        """The JAX trainer's payload (``generator``, ``discriminator``,
+        ``d_spectral`` ``{}``, ``opt_G`` / ``opt_D`` in optax's state-dict
+        layout, ``ema_G{decay, shadow}``, ``base_key``) in the JAX layout,
+        and ``torch_rng``, the step sampler's state. Leaves are tensors on
+        the state's device and may alias the state: the writers copy them
+        to the host (``train/checkpoint.py``)."""
+        tree = jax_tree_from_state_dict
+        return {
+            "generator": tree(state.g_params),
+            "discriminator": tree(state.d_params),
+            "d_spectral": {},
+            "opt_G": self.opt_g.state_dict(state.opt_g, tree),
+            "opt_D": self.opt_d.state_dict(state.opt_d, tree),
+            "ema_G": {"decay": float(self.ema_decay), "shadow": tree(state.ema)},
+            "base_key": np.asarray(state.base_key, dtype=np.uint32),
+            "torch_rng": state.rng.get_state(),
+        }
+
+    def state_from_payload(self, payload: dict, step: int,
+                           device: torch.device | str = "cuda") -> CUTTrainState:
+        """A train state from a checkpoint payload of either package (numpy
+        leaves, as ``load_checkpoint`` gives them), on ``device`` (the card
+        unless the caller asks for the CPU). Without ``torch_rng`` (a JAX
+        checkpoint) the step sampler starts from the config's seed."""
+        seed = int(self.config.get("seed", 42))
+        state = self.state_from_state_dicts(
+            generator_state_dict_from_jax(payload["generator"]),
+            discriminator_state_dict_from_jax(payload["discriminator"]), seed, device)
+        if payload.get("d_spectral"):
+            raise NotImplementedError(f"a checkpoint with spectral-norm state ({_VARIANT_ITEM})")
+
+        def leaves(tree, convert):
+            return {k: v.to(device) for k, v in convert(tree).items()}
+
+        g_leaves = lambda t: leaves(t, generator_state_dict_from_jax)  # noqa: E731
+        d_leaves = lambda t: leaves(t, discriminator_state_dict_from_jax)  # noqa: E731
+        state.step = int(step)
+        state.opt_g = self.opt_g.load_state_dict(payload["opt_G"], g_leaves)
+        state.opt_d = self.opt_d.load_state_dict(payload["opt_D"], d_leaves)
+        state.ema = g_leaves(payload["ema_G"]["shadow"])
+        state.base_key = np.array(payload["base_key"], dtype=np.uint32)
+        if "torch_rng" in payload:
+            state.rng.set_state(torch.from_numpy(np.array(payload["torch_rng"], np.uint8)))
+        return state
 
     # ------------------------------------------------------------------ #
 

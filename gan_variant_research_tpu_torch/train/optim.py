@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
+import numpy as np
 import torch
 
 from gan_variant_research_tpu_torch.core import config as cfg_mod
@@ -71,6 +73,23 @@ class Optimizer:
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.add_((-lr * update).to(p.dtype))
         return AdamState(count, state.mu, state.nu)
+
+    def state_dict(self, state: AdamState, tree: Callable[[dict], dict]) -> dict:
+        """``state`` in the layout ``flax.serialization.to_state_dict`` gives
+        optax's state of the same chain: ``{"0": {} (the clip), "1": {"0":
+        {count, mu, nu} (scale_by_adam), "1": {} or, with the cosine
+        schedule, {count}}}``, without the clip's level when there is no
+        clip. ``tree`` maps the moments' dicts to the JAX param tree."""
+        count = np.asarray(state.count, dtype=np.int32)
+        adam = {"0": {"count": count, "mu": tree(state.mu), "nu": tree(state.nu)},
+                "1": {"count": count} if self.cosine is not None else {}}
+        return {"0": {}, "1": adam} if self.max_norm is not None else adam
+
+    def load_state_dict(self, data: dict, leaves: Callable[[dict], dict]) -> AdamState:
+        """The inverse of ``state_dict``; ``leaves`` maps a JAX tree of
+        moments back to the port's dict of tensors."""
+        adam = (data["1"] if self.max_norm is not None else data)["0"]
+        return AdamState(int(adam["count"]), leaves(adam["mu"]), leaves(adam["nu"]))
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float) -> dict[str, torch.Tensor]:

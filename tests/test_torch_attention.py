@@ -327,6 +327,147 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     assert (sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES) == before
 
 
+@pytest.mark.parametrize("d_qk, d_v, want", [
+    (32, 256, ("direct", 32, 256, 1)), (8, 8, ("direct", 8, 8, 1)),
+    (4, 32, ("padded", 8, 32, 1)), (20, 160, ("padded", 24, 160, 1)),
+    (4, 36, ("padded", 8, 40, 1)), (1, 1, ("padded", 8, 8, 1)),
+    (48, 384, ("split", 48, 192, 2)), (20, 384, ("split", 24, 192, 2)),
+    (8, 257, ("split", 8, 136, 2)), (16, 512, ("split", 16, 256, 2)),
+    (64, 1000, ("split", 64, 256, 4)), (72, 32, ("direct", 72, 32, 1))])
+def test_attention_route_is_picked_by_shape(d_qk, d_v, want):
+    """d_qk and the chunk width in multiples of 8 (at least 8), chunks of at
+    most 256 covering d_v; d_qk past 64 is left for the kernels to refuse."""
+    assert sa.attention_route(d_qk, d_v) == want
+    route, dqk, width, chunks = want
+    assert width % 8 == 0 and width <= 256 and width * chunks >= d_v
+    assert width * (chunks - 1) < d_v
+
+
+@pytest.mark.parametrize("shape", [(2, 50, 4, 36), (2, 33, 20, 384), (1, 40, 4, 384),
+                                   (2, 21, 20, 36), (1, 17, 48, 384)])
+def test_routed_core_matches_the_plain_core(shape):
+    """The padded and split routes' arithmetic (the kernels' wrappers run
+    their plain versions on the CPU) against the plain core on the unpadded,
+    unsplit inputs, float32, forward and gradients; on the CPU nothing is
+    counted as launched."""
+    q, k, v, g = _qkv(shape, seed=4)
+    before = dict(sa.ATTN_ROUTE_LAUNCHES)
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g)
+    want, want_grads = _port_grads(sa.spatial_attention_reference, q, k, v, g)
+    assert got.shape == want.shape == shape[:2] + shape[3:]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        # the split route sums dK and dQ over the chunks: float32 sums in
+        # another order
+        assert a.shape == b.shape
+        assert _rel_to_max(a, b) <= 1e-5, name
+    assert sa.ATTN_ROUTE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 20, 384), (2, 50, 4, 36)])
+def test_routed_core_in_bf16_keeps_the_plain_rounding(shape):
+    """bf16: the forward's columns round where the plain core's do (the
+    same bits); dV too. dK and dQ of the split route are the sum of each
+    chunk's bf16 result, cast once: within one bf16 rounding of each chunk's
+    largest value plus one of the sum's of the unsplit plain gradient."""
+    q, k, v, g = _qkv(shape, seed=5)
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g, torch.bfloat16)
+    want, want_grads = _port_grads(sa.spatial_attention_reference, q, k, v, g, torch.bfloat16)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_grads[2], want_grads[2])
+    chunks = sa.attention_route(shape[2], shape[3])[3]
+    for a, b in zip(got_grads[:2], want_grads[:2]):
+        tol = (chunks + 1) * _bf16_ulp(np.abs(b).max())
+        assert np.abs(a - b).max() <= tol
+
+
+def test_split_route_takes_each_chunks_own_di():
+    """The split backward equals autograd of the core run on each chunk
+    alone, dK and dQ summed: each chunk's di is its own sum of o do."""
+    q, k, v, g = (torch.from_numpy(a).double() for a in _qkv((1, 24, 8, 300), seed=6))
+    _, _, width, chunks = sa.attention_route(8, 300)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    dq, dk, dv = torch.autograd.grad(sa.spatial_attention(*leaves), leaves, g.float())
+    ql, kl = q.clone().requires_grad_(), k.clone().requires_grad_()
+    vp = torch.nn.functional.pad(v, (0, width * chunks - 300))
+    gp = torch.nn.functional.pad(g, (0, width * chunks - 300))
+    want_q = want_k = 0
+    for c in range(chunks):
+        sl = slice(c * width, (c + 1) * width)
+        o = torch.softmax(ql @ kl.transpose(1, 2), -1) @ vp[..., sl]
+        a, b = torch.autograd.grad(o, (ql, kl), gp[..., sl])
+        want_q, want_k = want_q + a, want_k + b
+    assert _rel_to_max(dq.numpy(), want_q.numpy()) <= 1e-5
+    assert _rel_to_max(dk.numpy(), want_k.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 48, 384), (1, 512, 20, 256)])
+def test_routed_core_matches_jax_flash_kernel_in_interpret_mode(shape):
+    """The split route at the ngf-96 variant's widths (d_qk 48, d_v 384 in
+    2 x 192) and the padded route at d_qk 20 against the Pallas flash kernel
+    (interpret mode) that the JAX variant runs there, float32, forward and
+    gradients, to the unrouted core's tolerances."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    q, k, v, g = _qkv(shape, seed=7)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(flash_spatial_attention, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v))
+        want_grads = vjp(jnp.asarray(g))
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        assert _rel_to_max(a, np.asarray(b)) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7 * 9, 4, 36), (1, 5 * 3, 20, 160),
+                                   (1, 4 * 6, 48, 384)])
+def test_routed_core_matches_jax_einsum_core(shape, dtype):
+    """The padded and split routes against SelfAttention2d's einsum path,
+    which the JAX package runs where d_v is no multiple of 128: float32
+    forward and gradients; bf16 forward within one rounding."""
+    q, k, v, g = _qkv(shape, seed=8)
+    jd = JAX_DTYPES[dtype]
+    want, vjp = jax.vjp(_jax_einsum_core, *(jnp.asarray(a, jd) for a in (q, k, v)))
+    want = np.asarray(want.astype(jnp.float32))
+    got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g, dtype)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+        for name, a, b in zip("qkv", got_grads, vjp(jnp.asarray(g))):
+            assert _rel_to_max(a, np.asarray(b)) <= 1e-5, name
+    else:
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("shape, route, chunks", [
+    ((2, 16, 8, 32), "direct", 1), ((2, 16, 4, 36), "padded", 1),
+    ((1, 16, 48, 384), "split", 2), ((1, 16, 8, 600), "split", 3)])
+def test_each_forward_launch_is_counted_under_the_callers_route(monkeypatch, shape, route,
+                                                               chunks):
+    """``spatial_attention`` hands its route to the forward wrapper, which
+    counts it where it launches: once per chunk, under the route the shape
+    picks."""
+    seen = []
+    forward = sa.spatial_attention_forward
+
+    def recorder(q, k, v, route="direct"):
+        seen.append((route, tuple(q.shape), tuple(v.shape)))
+        return forward(q, k, v, route)
+
+    monkeypatch.setattr(sa, "spatial_attention_forward", recorder)
+    q, k, v, _ = (torch.from_numpy(a) for a in _qkv(shape, seed=9))
+    sa.spatial_attention(q, k, v)
+    _, dqk, width, _ = sa.attention_route(shape[2], shape[3])
+    assert seen == [(route, (shape[0], shape[1], dqk), (shape[0], shape[1], width))] * chunks
+
+
+def test_forward_wrapper_refuses_an_unknown_route():
+    q = torch.zeros(1, 16, 8)
+    with pytest.raises(ValueError, match="route"):
+        sa.spatial_attention_forward(q, q, q, route="plain")
+
+
 @pytest.mark.parametrize("shape, message", [
     ((1, 64, 4, 32), "d_qk"), ((1, 64, 72, 32), "d_qk"), ((1, 64, 12, 32), "d_qk"),
     ((1, 64, 8, 264), "d_v"), ((1, 64, 8, 20), "d_v")])

@@ -95,7 +95,7 @@ def test_discriminator_conversion_is_strict():
 
 
 def test_spectral_norm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Variant losses and D options"):
         MultiscaleDiscriminator(ndf=4, use_spectral_norm=True)
 
 
@@ -378,7 +378,7 @@ def test_variant_weights_are_refused(weights):
     cfg = {"model": {"generator": {"ngf": 4, "n_blocks": 1},
                      "discriminator": {"ndf": 4, "n_layers": 1}},
            "loss_weights": weights}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Variant losses and D options"):
         CUTTrainer(cfg)
 
 

@@ -75,14 +75,18 @@ VARIANT_GENERATOR = {"use_attention": True, "attn_layers": [0], "use_channel_att
                      "style_dropout": {"alpha_min": 0.3, "alpha_max": 0.8}}
 
 
-def _two_steps(variant: bool):
-    cfg = tiny_config(batch_size=B, parallel={"num_devices": 1})
+def _two_steps(variant: bool, ngf: int | None = None, steps: int = 2, **overrides):
+    """``steps`` steps of both trainers on ``tiny_config`` (with the variant
+    generator, at ``ngf``, with ``overrides``)."""
+    cfg = tiny_config(batch_size=B, parallel={"num_devices": 1}, **overrides)
     if variant:
         cfg["model"]["generator"].update(VARIANT_GENERATOR)
+    if ngf is not None:
+        cfg["model"]["generator"]["ngf"] = ngf
     patch = pytest.MonkeyPatch()
     patch.setattr(jax_cut_trainer, "train_augment", _eager_train_augment)
     try:
-        return _run_two_steps(cfg, variant)
+        return _run_two_steps(cfg, variant, steps)
     finally:
         patch.undo()
 
@@ -113,7 +117,7 @@ def _variant_gains(g_params):
     return jax.tree_util.tree_map(jax.numpy.asarray, g)
 
 
-def _run_two_steps(cfg, variant=False):
+def _run_two_steps(cfg, variant=False, steps=2):
     from gan_variant_research_tpu.train.ema import ema_init
 
     jt = JaxCUTTrainer(cfg)
@@ -133,11 +137,12 @@ def _run_two_steps(cfg, variant=False):
     pstate = pt.state_from_jax(_np_tree(jstate.g_params), _np_tree(jstate.d_params),
                                device="cpu")
     rng = np.random.default_rng(7)
+    fake_dtype = {"bf16": jax.numpy.bfloat16}.get(cfg["runtime"]["precision"], jax.numpy.float32)
     out = []
-    for step in range(2):
+    for step in range(steps):
         photos = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
         monets = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
-        draws = step_draws(jstate.base_key, step, B, S, pt.da_policy, jax.numpy.float32,
+        draws = step_draws(jstate.base_key, step, B, S, pt.da_policy, fake_dtype,
                            pt.nce_tap_hw(), pt.num_patches, style=style)
         jstate, jlosses = jt.train_step(jstate, photos, monets, step=step)
         pstate, plosses = pt.train_step(pstate, torch.from_numpy(photos),
@@ -145,7 +150,8 @@ def _run_two_steps(cfg, variant=False):
         out.append(({k: float(v) for k, v in jlosses.items()},
                     {k: float(v) for k, v in plosses.items()},
                     _jax_snapshot(jstate), _port_snapshot(pstate)))
-    assert pt.step_flags(0) == (True, True) and pt.step_flags(1) == (False, True)
+    if steps == 2:
+        assert pt.step_flags(0) == (True, True) and pt.step_flags(1) == (False, True)
     return out
 
 
@@ -261,3 +267,85 @@ def _check_params(run, step, which):
         assert d[strong].max(initial=0) <= 1e-5, (k, d[strong].max())
         # Adam moves a noise leaf by about lr a step on each side
         assert d.max() <= 3 * 2e-4 * (step + 1), (k, d.max())
+
+
+# --------------------------------------------------------------------------- #
+# one step at other settings: the variant at other attention widths, the
+# reference-literal D reals, the bf16 identity pass, warmup_steps 0
+
+
+@pytest.fixture(scope="module", params=[8, 40], ids=lambda n: f"ngf{n}")
+def width_step(request):
+    """The variant step at ngf 8 (d_qk 4) and 40 (d_qk 20, d_v 160): the
+    attention's padded route."""
+    return _two_steps(variant=True, ngf=request.param, steps=1)
+
+
+def test_variant_step_matches_jax_at_attention_widths(width_step):
+    _check_losses(width_step, 0)
+    for net in ("g", "d"):
+        _check_adam_moments(width_step, 0, net)
+    for which in ("g_params", "d_params", "ema"):
+        _check_params(width_step, 0, which)
+
+
+@pytest.fixture(scope="module")
+def photo_domain_step():
+    return _two_steps(variant=False, steps=1,
+                      runtime={"precision": "fp32", "d_real_domain": "photo"})
+
+
+def test_photo_domain_step_matches_jax(photo_domain_step):
+    """``runtime.d_real_domain: photo``: D's reals are the photos, as the
+    reference trains it."""
+    _check_losses(photo_domain_step, 0)
+    for net in ("g", "d"):
+        _check_adam_moments(photo_domain_step, 0, net)
+    for which in ("g_params", "d_params", "ema"):
+        _check_params(photo_domain_step, 0, which)
+
+
+@pytest.fixture(scope="module")
+def bf16_identity_steps():
+    return {fp32: _two_steps(variant=False, steps=1,
+                             runtime={"precision": "bf16", "d_real_domain": "monet",
+                                      "identity_fp32": fp32})[0]
+            for fp32 in (False, True)}
+
+
+def test_bf16_identity_pass_and_its_float32_island_match_jax(bf16_identity_steps):
+    """bf16 compute: with ``runtime.identity_fp32`` the identity pass is a
+    float32 island (the float32 generator on the same parameters, the same
+    bf16-free inputs) and its L1 agrees with JAX's to float32 rounding (6e-7
+    measured); without it the pass runs in bf16 on both sides and agrees to
+    bf16 rounding of the activations, averaged by the L1 mean (1.7e-4
+    measured). The bf16 pass lands much farther from the float32 island
+    than the port's island does: the flag selects the pass."""
+    (want16, got16, _, _), (want32, got32, _, _) = (bf16_identity_steps[False],
+                                                    bf16_identity_steps[True])
+    np.testing.assert_allclose(got32["identity"], want32["identity"], rtol=1e-5)
+    np.testing.assert_allclose(got16["identity"], want16["identity"], rtol=2e-3)
+    island = abs(got32["identity"] - want32["identity"])
+    assert abs(got16["identity"] - want32["identity"]) > 10 * island
+    for got in (got16, got32):
+        assert all(np.isfinite(v) for v in got.values())
+
+
+def test_warmup_steps_zero_diverges_from_jax_at_step_0():
+    """The JAX step's device formula min(step / warmup_steps, 1) is 0/0 at
+    step 0 with warmup_steps 0: identity_weight and g_loss are NaN there and
+    the JAX loop's tripwire stops the run (ROADMAP Queue 3). The port takes
+    the final weight and stays finite; the rest of the step agrees."""
+    from gan_variant_research_tpu.train import loop as jax_loop
+    from gan_variant_research_tpu_torch.train import loop as port_loop
+
+    want, got, _, _ = _two_steps(variant=False, steps=1, warmup_steps=0)[0]
+    assert np.isnan(want["g_loss"]) and np.isnan(want["identity_weight"])
+    with pytest.raises(ValueError, match="NaN loss"):
+        jax_loop._check_finite(0, want)
+    port_loop._check_finite(0, got)
+    assert all(np.isfinite(v) for v in got.values())
+    assert got["identity_weight"] == 0.0 and got["identity"] == 0.0
+    np.testing.assert_allclose(got["g_loss"], want["g_adv"] + want["nce"], rtol=1e-4)
+    for k in ("d_loss", "g_adv", "nce", "r1"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)

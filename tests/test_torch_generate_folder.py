@@ -63,15 +63,22 @@ def test_load_checkpoint_reads_flax_msgpack(ckpt):
     assert extras["scalar"] == 3.5
 
 
-def test_load_checkpoint_refuses_chunked_arrays(tmp_path):
+def test_load_checkpoint_refuses_chunked_arrays(tmp_path, monkeypatch):
+    """A chunked leaf without chunks is refused; flax's chunked leaves (made
+    by flax with its chunk size lowered) are reassembled."""
+    import flax.serialization
     import msgpack
 
     path = tmp_path / "chunked.msgpack"
     blob = {"step": 1, "config_json": "{}", "metrics_json": "{}",
             "payload": {"w": {"__msgpack_chunked_array__": True, "shape": {}, "chunks": {}}}}
     path.write_bytes(msgpack.packb(blob))
-    with pytest.raises(NotImplementedError, match="chunked"):
+    with pytest.raises(ValueError, match="chunk"):
         load_checkpoint(path)
+    w = np.arange(40, dtype=np.float32).reshape(5, 8)
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 48)
+    path = save_checkpoint(tmp_path / "chunked2.msgpack", 2, {"w": w})
+    np.testing.assert_array_equal(load_checkpoint(path)["payload"]["w"], w)
 
 
 def test_load_generator_params_is_ema_first(ckpt, capsys):

@@ -109,11 +109,11 @@ def test_converter_rejects_leftover_modules_and_leaves():
 # dropout, ngf 8, 3 blocks
 
 
-def _variant_pair():
+def _variant_pair(ngf: int = 8):
     """The JAX variant generator and its params with non-zero gains (at init
     every variant block is an identity, and the attention core would get no
     gradient and leave no trace in the output)."""
-    jax_gen = JaxGenerator(ngf=8, n_blocks=3, **VARIANTS)
+    jax_gen = JaxGenerator(ngf=ngf, n_blocks=3, **VARIANTS)
     x = np.random.default_rng(11).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     params = jax.tree_util.tree_map(
         lambda a: np.array(a, np.float32),
@@ -125,9 +125,9 @@ def _variant_pair():
         shape = params["channel_attn_1"]["fc2"][leaf].shape
         params["channel_attn_1"]["fc2"][leaf] = rng.standard_normal(shape).astype(np.float32)
     for i in range(3):
-        params[f"style_gate_{i}"]["gamma"] = rng.uniform(0.5, 1.5, 32).astype(np.float32)
-        params[f"style_gate_{i}"]["beta"] = rng.uniform(-0.5, 0.5, 32).astype(np.float32)
-    gen = ResNetGenerator(ngf=8, n_blocks=3, **VARIANTS)
+        params[f"style_gate_{i}"]["gamma"] = rng.uniform(0.5, 1.5, 4 * ngf).astype(np.float32)
+        params[f"style_gate_{i}"]["beta"] = rng.uniform(-0.5, 0.5, 4 * ngf).astype(np.float32)
+    gen = ResNetGenerator(ngf=ngf, n_blocks=3, **VARIANTS)
     gen.load_state_dict(generator_state_dict_from_jax(params))
     return jax_gen, params, gen, x
 
@@ -160,6 +160,21 @@ def test_variant_image_and_taps_match_jax(styled):
     if styled:   # the draws change the image
         plain = jax_gen.apply({"params": params}, jnp.asarray(x))
         assert np.abs(np.asarray(plain) - np.asarray(want)).max() > 1e-2
+
+
+@pytest.mark.parametrize("ngf", [40])
+def test_variant_image_matches_jax_at_other_attention_widths(ngf):
+    """ngf 40: d_qk 20 and d_v 160, the attention's padded route (ngf 8, d_qk
+    4, is the case above), with style draws."""
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    jax_gen, params, gen, x = _variant_pair(ngf)
+    assert sa.attention_route(ngf * 4 // 8, ngf * 4)[0] == "padded"
+    key = jax.random.PRNGKey(22)
+    want = jax_gen.apply({"params": params}, jnp.asarray(x), style_key=key)
+    with torch.no_grad():
+        got = gen(torch.from_numpy(x), style_alpha=torch.from_numpy(_style_draws(key, 3, 2)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
 def test_variant_converter_round_trips_and_stays_strict():

@@ -1,6 +1,7 @@
-"""Packaging contract of the PyTorch port: it imports no JAX, every
-subpackage installs, the CUDA sources ship, and its console script
-resolves."""
+"""Packaging contract of the PyTorch port: it imports no JAX (nor PyYAML,
+msgpack or matplotlib, which the machine with the card may lack), every
+subpackage installs, the CUDA sources and the default config ship, and its
+console scripts resolve."""
 
 import ctypes
 import importlib
@@ -31,15 +32,22 @@ def _modules():
         for p in root.rglob("*.py"))
 
 
+# top-level modules the port must not load on import: JAX and the JAX
+# package, and PyYAML, msgpack and matplotlib (imported inside functions at
+# most)
+BANNED_MODULES = ("jax", "jaxlib", "flax", "optax", "gan_variant_research_tpu", "yaml",
+                  "msgpack", "matplotlib")
+
+
 def test_port_imports_no_jax():
     """The machine with the card may have no JAX: importing every module of
-    the port in a fresh interpreter must not load jax, flax or optax."""
+    the port in a fresh interpreter must not load jax, flax, optax, the JAX
+    package, yaml, msgpack or matplotlib."""
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                             'gan_variant_research_tpu'))))\n"
+        f"      if m.split('.')[0] in {BANNED_MODULES!r})))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -51,21 +59,21 @@ TRAIN_SLICE_MODULES = (
     "core.config", "core.prng", "data.augment", "losses.adversarial", "losses.patchnce",
     "losses.reconstruction", "models.attention", "models.discriminator_patchgan",
     "ops.diffaugment", "ops.kernels.spatial_attention", "train.cut_trainer", "train.ema",
-    "train.optim")
+    "train.optim", "data.folders", "data.loader", "train.checkpoint", "train.msgpack_codec",
+    "train.loss_tracker", "train.plotting", "train.loop", "cli.train_cutpp")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE_MODULES)
 def test_train_slice_module_imports_without_jax(module):
     """Each module of the train slice, alone in a fresh interpreter, loads
-    no jax, flax, optax or JAX-package module."""
+    no jax, flax, optax, JAX-package, yaml, msgpack or matplotlib module."""
     name = f"{PKG}.{module}"
     assert name in _modules()
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({name!r})\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
-        "      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                             'gan_variant_research_tpu'))))\n"
+        f"      if m.split('.')[0] in {BANNED_MODULES!r})))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -96,8 +104,9 @@ def test_all_port_subpackages_have_init():
 
 def test_cuda_sources_ship_as_package_data(pyproject):
     globs = pyproject["tool"]["setuptools"]["package-data"][PKG]
-    assert globs == ["csrc/*.cu"]
-    assert list((REPO_ROOT / PKG).glob(globs[0]))
+    assert globs == ["csrc/*.cu", "configs/*.yaml"]
+    for pattern in globs:
+        assert list((REPO_ROOT / PKG).glob(pattern)), pattern
     assert any(PKG.startswith(inc.rstrip("*"))
                for inc in pyproject["tool"]["setuptools"]["packages"]["find"]["include"])
 
@@ -106,6 +115,13 @@ def test_console_script_resolves(pyproject):
     target = pyproject["project"]["scripts"]["gvr-torch-generate-folder"]
     mod_name, _, attr = target.partition(":")
     assert mod_name == f"{PKG}.cli.generate_folder"
+    assert callable(getattr(importlib.import_module(mod_name), attr))
+
+
+def test_train_console_script_resolves(pyproject):
+    target = pyproject["project"]["scripts"]["gvr-torch-train-cutpp"]
+    mod_name, _, attr = target.partition(":")
+    assert mod_name == f"{PKG}.cli.train_cutpp"
     assert callable(getattr(importlib.import_module(mod_name), attr))
 
 
