@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serving and training,
-the flagship generator and the variant one.
+the flagship generator and the variant one, and MiFID/FID evaluation.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,11 @@ Phases, one line each:
               bf16 forward's tile edges (n of 4097 and 129, d_qk 8 and 64, d_v
               8 and 136) and dK/dV's (n of 127, 128, 129 and 4097 at B = 1,
               d_qk 8, 24 and 64, d_v 8, 72 and 136) and dQ's (n of 1, 63, 65,
-              129, 200 and 4097, B up to 3, d_qk 8 to 64, d_v 8 to 256):
+              129, 200 and 4097, B up to 3, d_qk 8 to 64, d_v 8 to 256), and
+              the d_qk-128 instance at (12, 4096, 128, 256), (12, 4096, 128,
+              128) and its tile edges (2, 4097, 128, 256), (3, 129, 72, 136)
+              and (2, 129, 128, 40), in float32 and bf16 (its backward on the
+              first 128 columns of v, with the whole forward's lse):
               float32 within 1e-5 (forward) and 1e-4 (gradients) of the
               largest value; the bf16 forward at most twice as far from the
               float32 plain version as the bf16 plain version is; bf16 dK/dV
@@ -92,17 +96,25 @@ Phases, one line each:
               a served batch and of a warmup step of each, with the device's
               busy time and idle share.
 
-8. attention_widths - variant generators at ngf 8, 40 and 96 (d_qk 4, 20,
-              48; d_v 32, 160, 384), full depth, 256^2: one served batch of 4
-              and one bf16 train step at batch 4 each, asserting the launches
-              of each attention route (ngf 8 and 40 padded, 96 split:
-              2 x 192); the routed core at (4, 4096, d_qk, d_v) against its
-              plain version: float32 to the kernels' tolerances, bf16 forward
-              by the forward's rule, bf16 backward by bf16_backward_check,
-              the split route's dK and dQ within one bf16 rounding of each
-              chunk's largest value plus one of the sum's (each chunk's
-              output is rounded, then their float32 sum once more); the split
-              forward and backward at (12, 4096, 48, 384) timed beside SDPA;
+8. attention_widths - variant generators at ngf 8, 40, 96, 160, 256 and
+              320 (d_qk 4, 20, 48, 80, 128, 160; d_v 32, 160, 384, 640,
+              1024, 1280), full depth, 256^2: one served batch of 4 and one
+              bf16 train step at batch 4 each, asserting the launches of each
+              attention route and kernel as WIDTH_ROUTES writes them out (ngf
+              8 and 40 padded, 96 split: 2 x 192; 160 split on the d_qk-128
+              instance, d_qk 80 padded to 128, 3 x 216, each backward in 128
+              + 88; 256 split on it, 4 x 256, each backward in 2 x 128; 320
+              the einsum core, no kernel launched, counted under einsum); the
+              routed core at (4, 4096, d_qk, d_v) of each width the kernels
+              take against its plain version: float32 to the kernels'
+              tolerances, bf16 forward by the forward's rule, bf16 backward
+              by bf16_backward_check, the split route's dK and dQ within one
+              bf16 rounding of each backward chunk's largest value plus one of
+              the sum's (each chunk's output is rounded, then their float32
+              sum once more); the split forward and backward at (12, 4096,
+              48, 384) timed beside SDPA; the d_qk-128 instance at (12, 4096,
+              128, 256) timed beside its plain version and SDPA, its backward
+              kernels at their 128-column chunk;
 9. train_run - train_cut on the flagship config (batch 12, 256^2, random
               weights from the config's seed) from a seeded folder of 60
               photo and 40 Monet JPEGs: 240 steps, an async checkpoint every
@@ -114,11 +126,26 @@ Phases, one line each:
               finite losses in every CSV row and JSON line; prints steps/s,
               the share of the loop's wall time spent in next(loader), the
               async and synchronous save times and the checkpoint's size.
+10. eval     - the port's MiFID/FID evaluation (evalsuite/cli.py::
+              run_evaluation) on seeded folders of 7,000 fake and 300 real
+              256^2 JPEGs (the Kaggle submission's minimum and the Monet
+              set), Inception weights from a numpy seed (He-normal convs,
+              well-conditioned BatchNorm statistics), batch 64 at 299^2 in
+              float32 with TF32 off, KID and precision/recall on, run twice:
+              the real-stats cache empty, then hit. Asserts finite scores,
+              the cache hit with the first run's scores, the JSON report,
+              text summary and worst-cases CSV in the JAX schema, the card's
+              features of 64 images within 1e-4 of the largest value of the
+              port's CPU features, and no hand-written kernel launched;
+              prints the extractor's images/s on the card, each stage's
+              seconds and the decode thread's share of the wall time.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON (each row's times and bound at the shape its
 `launches` run at: the trunk forward's at the train step's batch 12, with
-its batch-32 served time, bound and cuDNN time beside them); the last line is
+its batch-32 served time, bound and cuDNN time beside them; the attention
+rows also carry the d_qk-128 instance's launches and times under
+``dqk128_*``); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -624,9 +651,10 @@ def kernel_device_us(fn, iters: int, names: dict) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(4):
         # a session now and then gets no device events from the tracer
-        # (seen once in ten): take a second one before giving up
+        # (seen once in ten, and twice running once): take another before
+        # giving up
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -850,7 +878,16 @@ ATTN_CASES = [((12, 4096, 32, 256), torch.float32), (ATTN_SHAPE, torch.bfloat16)
               # 256) above)
               ((1, 1, 8, 8), torch.bfloat16), ((2, 63, 32, 256), torch.bfloat16),
               ((3, 129, 24, 8), torch.bfloat16), ((1, 200, 64, 136), torch.bfloat16),
-              ((2, 65, 16, 192), torch.bfloat16)]
+              ((2, 65, 16, 192), torch.bfloat16),
+              # the d_qk-128 instance (q and k in two 64-column boxes; the
+              # backward on the first 128 columns of v, with the 256-wide
+              # forward's lse): the ngf-256 variant's core at batch 12, its
+              # backward chunk width, and its tile edges (n of 4097 and 129,
+              # d_qk 72 zero-filled to 128 by TMA, ragged d_v)
+              *((shape, dtype) for shape in ((12, 4096, 128, 256), (12, 4096, 128, 128),
+                                             (2, 4097, 128, 256), (3, 129, 72, 136),
+                                             (2, 129, 128, 40))
+                for dtype in (torch.float32, torch.bfloat16))]
 
 
 def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
@@ -862,7 +899,9 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
     bf16 inputs, and may be at most twice as far from it as the plain
     version is; dK/dV and dQ are held to the contract version, which rounds
     where they do (``bf16_backward_check``). Every kernel run twice must
-    agree bitwise."""
+    agree bitwise. Where d_v is wider than the backward kernels take
+    (``backward_width``), the backward runs on the first chunk of v that
+    they take, with the whole forward's lse."""
     from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
 
     contract = attention_backwards(sa)["contract"]
@@ -870,26 +909,29 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
     for shape, dtype in cases:
         q, k, v, do = attention_inputs(shape, dtype, gen)
         label = dict(shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1])
+        if shape[3] > sa.backward_width(shape[2]):
+            label["bwd_d_v"] = sa.backward_width(shape[2])
         o, lse = sa.spatial_attention_forward(q, k, v)
         o2, lse2 = sa.spatial_attention_forward(q, k, v)
-        di = (o.float() * do.float()).sum(-1)
-        dk, dv = sa.spatial_attention_dkv(q, k, v, do, lse, di)
-        dk2, dv2 = sa.spatial_attention_dkv(q, k, v, do, lse, di)
-        dq = sa.spatial_attention_dq(q, k, v, do, lse, di)
-        dq2 = sa.spatial_attention_dq(q, k, v, do, lse, di)
+        vb, dob, ob = (t[..., :sa.backward_width(shape[2])].contiguous() for t in (v, do, o))
+        di = (ob.float() * dob.float()).sum(-1)
+        dk, dv = sa.spatial_attention_dkv(q, k, vb, dob, lse, di)
+        dk2, dv2 = sa.spatial_attention_dkv(q, k, vb, dob, lse, di)
+        dq = sa.spatial_attention_dq(q, k, vb, dob, lse, di)
+        dq2 = sa.spatial_attention_dq(q, k, vb, dob, lse, di)
         torch.cuda.synchronize()
         got = {"fwd": (o,), "dkv": (dk, dv), "dq": (dq,)}
         plain = {"fwd": (sa.spatial_attention_reference(q, k, v),),
-                 "dkv": sa.spatial_attention_dkv_reference(q, k, v, do, lse, di),
-                 "dq": (sa.spatial_attention_dq_reference(q, k, v, do, lse, di),)}
+                 "dkv": sa.spatial_attention_dkv_reference(q, k, vb, dob, lse, di),
+                 "dq": (sa.spatial_attention_dq_reference(q, k, vb, dob, lse, di),)}
         check(all(a.dtype == dtype and a.shape == b.shape for kind in got
                   for a, b in zip(got[kind], plain[kind])), f"attention {shape} {dtype}: bad output")
         if dtype == torch.bfloat16:
-            f32 = [t.float() for t in (q, k, v, do)]
-            truth = {"fwd": (sa.spatial_attention_reference(*f32[:3]),),
+            f32 = [t.float() for t in (q, k, vb, dob)]
+            truth = {"fwd": (sa.spatial_attention_reference(q.float(), k.float(), v.float()),),
                      "dkv": sa.spatial_attention_dkv_reference(*f32, lse, di),
                      "dq": (sa.spatial_attention_dq_reference(*f32, lse, di),)}
-            dq_c, dk_c, dv_c = per_image(contract, q, k, v, do, lse, di)
+            dq_c, dk_c, dv_c = per_image(contract, q, k, vb, dob, lse, di)
             contracts = {"dkv": (dk_c, dv_c), "dq": (dq_c,)}
         for kind in got:
             worst, fields = 0.0, {}
@@ -926,7 +968,7 @@ def phase_attention_kernels(gen, cases=ATTN_CASES) -> dict:
             errs[(kind, shape, dtype)] = worst
             phase("kernel", name=f"spatial_attention_{kind}" if kind != "fwd"
                   else "spatial_attention", **label, **fields)
-        del q, k, v, do, o, lse, o2, lse2, di, got, plain
+        del q, k, v, do, o, lse, o2, lse2, vb, dob, ob, di, got, plain
         torch.cuda.empty_cache()
     return errs
 
@@ -1410,15 +1452,24 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
 # attention widths: variant generators whose attention the kernels take
 # through a route (ops/kernels/spatial_attention.py::attention_route)
 
-# ngf: (route, chunks) that the attention's forward launches must be
-# counted under, written out from the kernels' limits (d_qk and d_v
-# multiples of 8, d_v <= 256), not read off ``attention_route``
-WIDTH_ROUTES = {8: ("padded", 1),       # d_qk 4 -> 8, d_v 32
-                40: ("padded", 1),      # d_qk 20 -> 24, d_v 160
-                96: ("split", 2)}       # d_qk 48, d_v 384 -> 2 x 192
+# ngf: (route, the route's count a core call, (forward, dK/dV, dQ) kernel
+# launches a core call), written out from the kernels' limits (d_qk and
+# d_v multiples of 8, d_qk past 64 padded to the 128 instance, d_v <= 256
+# forward and <= 128 backward at d_qk 128, the einsum core past d_qk 128),
+# not read off ``attention_route``
+WIDTH_ROUTES = {8: ("padded", 1, (1, 1, 1)),      # d_qk 4 -> 8, d_v 32
+                40: ("padded", 1, (1, 1, 1)),     # d_qk 20 -> 24, d_v 160
+                96: ("split", 2, (2, 2, 2)),      # d_qk 48, d_v 384 -> 2 x 192
+                # d_qk 80 -> 128, d_v 640 -> 3 x 216, each 128 + 88 backward
+                160: ("split", 3, (3, 6, 6)),
+                # d_qk 128, d_v 1024 -> 4 x 256, each 2 x 128 backward
+                256: ("split", 4, (4, 8, 8)),
+                320: ("einsum", 1, (0, 0, 0))}    # d_qk 160: the einsum core
 WIDTH_NGFS = tuple(WIDTH_ROUTES)
+DQK128_NGFS = (160, 256)                # the widths the d_qk-128 instance carries
 WIDTH_BATCH = 4
 SPLIT_SHAPE = (12, 4096, 48, 384)       # the ngf-96 variant's core at batch 12
+DQK128_SHAPE = (12, 4096, 128, 256)     # the d_qk-128 instance at batch 12
 
 
 def routed_grads(fn, q, k, v, do):
@@ -1430,20 +1481,30 @@ def routed_grads(fn, q, k, v, do):
     return o.detach(), grads
 
 
-def split_contract(sa, q, k, v, do, o, width):
-    """The contract version of the split route: each column chunk of v takes
-    the contract backward (float64 sums, the kernels' bf16 rounding points)
-    with its own di; dV is the chunks side by side, dK and dQ their sums in
-    float64. Returns ((dq, dk, dv), the bf16 tolerance of each): one
-    rounding of each chunk's largest value (each chunk's kernel output is
-    rounded to bf16) plus one of the sum's (the sum is cast once). dV keeps
-    the one rounding of the unsplit check."""
+def backward_chunks(sa, d_qk: int, d_v: int) -> list[tuple[int, int]]:
+    """The column ranges of v that the backward kernels take one launch
+    each on ``spatial_attention``'s route: each forward chunk cut again at
+    ``backward_width``, clipped to d_v."""
+    _, dqk, width, _ = sa.attention_route(d_qk, d_v)
+    bw = sa.backward_width(dqk)
+    return [(b0, min(b0 + bw, c0 + width, d_v)) for c0 in range(0, d_v, width)
+            for b0 in range(c0, min(c0 + width, d_v), bw)]
+
+
+def split_contract(sa, q, k, v, do, o, chunks):
+    """The contract version of the split route: each backward chunk of v
+    (``backward_chunks``) takes the contract backward (float64 sums, the
+    kernels' bf16 rounding points) with its own di; dV is the chunks side
+    by side, dK and dQ their sums in float64. Returns ((dq, dk, dv), the bf16
+    tolerance of each): one rounding of each chunk's largest value (each
+    chunk's kernel output is rounded to bf16) plus one of the sum's (the sum
+    is cast once). dV keeps the one rounding of the unsplit check."""
     lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2), dim=-1)
     sums = {"dq": 0.0, "dk": 0.0}
     tol = {"dq": 0.0, "dk": 0.0}
     dvs = []
-    for c in range(0, v.shape[2], width):
-        v_c, do_c, o_c = (t[..., c:c + width].contiguous() for t in (v, do, o))
+    for c0, c1 in chunks:
+        v_c, do_c, o_c = (t[..., c0:c1].contiguous() for t in (v, do, o))
         di = (o_c.float() * do_c.float()).sum(-1)
         dq_c = per_image(lambda *a: (sa.spatial_attention_dq_contract(*a),), q, k, v_c, do_c,
                          lse, di)[0]
@@ -1460,10 +1521,11 @@ def split_contract(sa, q, k, v, do, o, width):
 
 
 def phase_attention_widths(gen, rng) -> dict:
-    """Variant generators at ngf 8, 40 and 96 (full depth, 256^2): one served
-    batch of 4 and one bf16 train step at batch 4 each, the launches of each
-    route asserted; then the routed core at each width (4, 4096, d_qk, d_v)
-    against its plain version, and the split route timed beside SDPA."""
+    """Variant generators at ngf 8, 40, 96, 160, 256 and 320 (full depth,
+    256^2): one served batch of 4 and one bf16 train step at batch 4 each,
+    the launches of each route and kernel asserted; then the routed core at
+    each width the kernels take (4, 4096, d_qk, d_v) against its plain
+    version, the split route and the d_qk-128 instance timed beside SDPA."""
     from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
     from gan_variant_research_tpu_torch.convert import generator_state_dict_from_jax
     from gan_variant_research_tpu_torch.core.precision import DEFAULT_POLICY
@@ -1475,10 +1537,11 @@ def phase_attention_widths(gen, rng) -> dict:
     u8 = lambda: torch.from_numpy(  # noqa: E731
         rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda()
     routes_seen = dict.fromkeys(sa.ATTN_ROUTES, 0)
+    dqk128_launches = [0, 0, 0]
     for ngf in WIDTH_NGFS:
         c = ngf * 2 ** FLAGSHIP["n_downsampling"]
         d_qk, d_v = c // 8, c
-        route, chunks = WIDTH_ROUTES[ngf]
+        route, calls, per_call = WIDTH_ROUTES[ngf]
         _, dqk_pad, width, _ = sa.attention_route(d_qk, d_v)
         gcfg = dict(FLAGSHIP, ngf=ngf, **VARIANT_G)
         net = build_generator(gcfg, DEFAULT_POLICY)
@@ -1490,10 +1553,10 @@ def phase_attention_widths(gen, rng) -> dict:
         reset_attn_counts(sa)
         out = stylize_batch(net, photos)
         torch.cuda.synchronize()
-        want = ATTN_BLOCKS * chunks
+        want = (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: ATTN_BLOCKS * calls}),
+                (ATTN_BLOCKS * per_call[0], 0, 0))
         served = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
-        check(served == (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: want}), (want, 0, 0)),
-              f"ngf {ngf}: a served batch launched {served}, want {want} on {route}")
+        check(served == want, f"ngf {ngf}: a served batch launched {served}, want {want}")
         check(out.dtype == torch.uint8 and tuple(out.shape) == (b, s, s, 3)
               and float(out.float().std()) > 1.0, f"ngf {ngf}: served {out.dtype} "
               f"{tuple(out.shape)} std {float(out.float().std())}")
@@ -1514,31 +1577,39 @@ def phase_attention_widths(gen, rng) -> dict:
         reset_attn_counts(sa)
         state, losses = trainer.train_step(state, photos, monets, step=1)
         torch.cuda.synchronize()
-        want_step = 3 * ATTN_BLOCKS * chunks
+        # 3 G passes, each with its backward
+        want_step = (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: 3 * ATTN_BLOCKS * calls}),
+                     tuple(3 * ATTN_BLOCKS * x for x in per_call))
         stepped = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
-        check(stepped == (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: want_step}),
-                          (want_step,) * 3),
-              f"ngf {ngf}: a train step launched {stepped}, want {want_step} on {route}")
+        check(stepped == want_step, f"ngf {ngf}: a train step launched {stepped}, "
+              f"want {want_step}")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"ngf {ngf}: non-finite losses {vals}")
         routes_seen[route] += served[0][route] + stepped[0][route]
+        if ngf in DQK128_NGFS:
+            for i, x in enumerate(np.add(served[1], stepped[1])):
+                dqk128_launches[i] += int(x)
         phase("attention_widths", model=f"resnet9-ngf{ngf}-9blocks+attn[3,7]+chattn[5]+style",
-              d_qk=d_qk, d_v=d_v, route=route, kernel_d_qk=dqk_pad, chunk_width=width,
-              chunks=chunks, serve_batch=b, serve_route_launches=served[0][route],
+              d_qk=d_qk, d_v=d_v, route=route, kernel_d_qk=dqk_pad if route != "einsum" else "-",
+              chunk_width=width, chunks=calls if route != "einsum" else 0,
+              bwd_chunks=per_call[1], serve_batch=b, serve_route_launches=served[0][route],
               serve_uint8_vs_plain_max_levels=int(level.max()),
               step_route_launches=stepped[0][route],
               step_fwd_dkv_dq="/".join(map(str, stepped[1])),
               **{k: f"{v:.5f}" for k, v in vals.items() if k in ("d_loss", "g_loss", "nce")})
         del trainer, state, losses, photos, monets
         torch.cuda.empty_cache()
-    check(routes_seen["padded"] > 0 and routes_seen["split"] > 0,
-          f"the padded and split routes were not both launched: {routes_seen}")
+    check(all(routes_seen[r] > 0 for r in ("padded", "split", "einsum")),
+          f"the padded, split and einsum routes were not all taken: {routes_seen}")
 
-    # the routed core at each width against its plain version
+    # the routed core at each width the kernels take against its plain version
     for ngf in WIDTH_NGFS:
         c = ngf * 2 ** FLAGSHIP["n_downsampling"]
         shape = (b, 4096, c // 8, c)
-        route, _, width, chunks = sa.attention_route(c // 8, c)
+        route = sa.attention_route(c // 8, c)[0]
+        if route == "einsum":
+            continue
+        chunks = backward_chunks(sa, c // 8, c)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = attention_inputs(shape, dtype, gen)
             o, grads = routed_grads(sa.spatial_attention, q, k, v, do)
@@ -1560,7 +1631,7 @@ def phase_attention_widths(gen, rng) -> dict:
                 fields.update(o_err_vs_f32=f"{e_k:.3e}", o_plain_err_vs_f32=f"{e_p:.3e}")
                 check(e_k <= 2 * e_p + 1e-6 * float(o_t.abs().max()),
                       f"routed {route} {shape} bf16 o: {e_k} from float32, the plain {e_p}")
-                if chunks == 1:
+                if len(chunks) == 1:
                     lse = torch.logsumexp(q.float() @ k.float().transpose(1, 2), dim=-1)
                     di = (o.float() * do.float()).sum(-1)
                     dq_c, = per_image(lambda *a: (sa.spatial_attention_dq_contract(*a),),
@@ -1570,7 +1641,7 @@ def phase_attention_widths(gen, rng) -> dict:
                     contract = (dq_c, dk_c, dv_c)
                     tols = None
                 else:
-                    contract, tols = split_contract(sa, q, k, v, do, o, width)
+                    contract, tols = split_contract(sa, q, k, v, do, o, chunks)
                 for name, a, con, p_, t in zip(("dq", "dk", "dv"), grads, contract, grads_p,
                                                grads_t):
                     verdict = bf16_backward_check(a, con, p_, t)
@@ -1583,7 +1654,8 @@ def phase_attention_widths(gen, rng) -> dict:
                                    if k_ != "ok"})
                     check(verdict["ok"], f"routed {route} {shape} bf16 {name}: {verdict}")
             phase("kernel", name="spatial_attention_routed", route=route,
-                  shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1], **fields)
+                  shape="x".join(map(str, shape)), dtype=str(dtype).split(".")[-1],
+                  bwd_chunks=len(chunks), **fields)
             del q, k, v, do, o, grads, o_p, grads_p
             torch.cuda.empty_cache()
 
@@ -1608,7 +1680,52 @@ def phase_attention_widths(gen, rng) -> dict:
           **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()})
     del q, k, v, do, leaves, o_k, o_l
     torch.cuda.empty_cache()
-    return {"routes": routes_seen, "split_times": times}
+    return {"routes": routes_seen, "split_times": times, "dqk128_launches": dqk128_launches,
+            "dqk128": dqk128_timing(gen)}
+
+
+def dqk128_timing(gen) -> dict:
+    """The d_qk-128 instance at DQK128_SHAPE, bf16, on CUDA events: the
+    forward at d_v 256 and each backward kernel at its chunk width (d_v
+    128, the forward's lse), beside the plain versions and SDPA (forward at
+    d_v 256, its backward at each chunk), with their bounds."""
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    q, k, v, do = attention_inputs(DQK128_SHAPE, torch.bfloat16, gen)
+    bw = sa.backward_width(DQK128_SHAPE[2])
+    bwd_shape = (*DQK128_SHAPE[:3], bw)
+    o, lse = sa.spatial_attention_forward(q, k, v)
+    vb, dob, ob = (t[..., :bw].contiguous() for t in (v, do, o))
+    di = (ob.float() * dob.float()).sum(-1)
+    ops = {"fwd": (lambda: sa.spatial_attention_forward(q, k, v),
+                   lambda: sa.spatial_attention_reference(q, k, v)),
+           "dkv": (lambda: sa.spatial_attention_dkv(q, k, vb, dob, lse, di),
+                   lambda: sa.spatial_attention_dkv_reference(q, k, vb, dob, lse, di)),
+           "dq": (lambda: sa.spatial_attention_dq(q, k, vb, dob, lse, di),
+                  lambda: sa.spatial_attention_dq_reference(q, k, vb, dob, lse, di))}
+    out = {}
+    for kind, (kernel, plain) in ops.items():
+        shape = DQK128_SHAPE if kind == "fwd" else bwd_shape
+        bound = bound_ms(attention_flops(shape)[kind], attention_bytes(shape, 2)[kind],
+                         PEAK_BF16_FLOPS)
+        out[kind] = {"shape": list(shape), "ms": event_ms(kernel, iters=10),
+                     "plain_ms": event_ms(plain, iters=3), "bound_ms": bound[0],
+                     "bound_by": bound[1]}
+    # SDPA: the forward at d_v 256; its backward (dK, dV and dQ in one call)
+    # at the backward kernels' chunk
+    leaves = [t.detach().requires_grad_() for t in (q, k, vb)]
+    o_l = sdpa(*leaves)
+    out["fwd"]["library_ms"] = event_ms(lambda: sdpa(q, k, v), iters=10)
+    bwd_lib = event_ms(lambda: torch.autograd.grad(o_l, leaves, dob, retain_graph=True),
+                       iters=10)
+    out["dkv"]["library_ms"] = out["dq"]["library_ms"] = bwd_lib
+    phase("timing", op="spatial_attention_dqk128", dtype="bf16",
+          **{f"{kind}_{key}": (f"{val:.4f}" if isinstance(val, float) else
+                               "x".join(map(str, val)) if isinstance(val, list) else val)
+             for kind, row in out.items() for key, val in row.items()})
+    del q, k, v, do, o, lse, vb, dob, ob, di, leaves, o_l
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1783,6 +1900,181 @@ def phase_train_run() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# MiFID/FID evaluation on the card: the Kaggle sizes, seeded weights
+
+EVAL_FAKE, EVAL_REAL, EVAL_BATCH, EVAL_SIZE = 7000, 300, 64, 299
+EVAL_CHECK_IMAGES = 64
+EVAL_REPORT_KEYS = {"run", "scores", "hashes", "notes", "memorization_analysis"}
+EVAL_RUN_KEYS = {"name", "timestamp_utc", "fake_dir", "real_mode", "real_dir_or_tfds",
+                 "num_fake", "num_real", "img_size", "batch_size", "num_workers", "warnings"}
+EVAL_CSV_HEADER = ["rank", "fake_path", "distance", "cosine_similarity", "nearest_real_path"]
+
+
+def write_jpeg_folder(folder: Path, count: int, seed: int) -> None:
+    """``count`` 256x256 JPEGs, each from its own numpy seed (smooth colour
+    fields with noise), written from a pool of 8 threads."""
+    from PIL import Image
+
+    folder.mkdir(parents=True)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 255.0
+
+    def one(i):
+        rng = np.random.default_rng((seed, i))
+        a = rng.uniform(0, 1, (3, 3))
+        img = np.stack([a[c, 0] * yy + a[c, 1] * xx + a[c, 2] for c in range(3)], -1)
+        img = img / img.max() * 200 + rng.normal(0, 12, (256, 256, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(folder / f"{i:05d}.jpg",
+                                                                     quality=90)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(count)))
+
+
+def seeded_inception_state_dict(seed: int = 0) -> dict:
+    """Weights for the port's InceptionV3FID from numpy streams keyed by each
+    leaf's name: He-normal conv kernels and well-conditioned BatchNorm
+    statistics (scale U(0.9, 1.1), bias N(0, 0.05), mean N(0, 0.1), var
+    U(0.9, 1.1)), so that activations stay O(1) through the ~90 convs: the
+    rule of the JAX package's golden pool3 weights."""
+    import zlib
+
+    from gan_variant_research_tpu_torch.evalsuite.inception import InceptionV3FID
+
+    sd = {}
+    for name, t in InceptionV3FID().state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        rng = np.random.default_rng((zlib.crc32(name.encode()) << 8) ^ seed)
+        shape, leaf = tuple(t.shape), name.rsplit(".", 1)[-1]
+        if name.endswith("conv.weight"):
+            a = rng.normal(0.0, (2.0 / (shape[1] * shape[2] * shape[3])) ** 0.5, shape)
+        elif leaf in ("weight", "running_var"):
+            a = rng.uniform(0.9, 1.1, shape)
+        elif leaf == "bias":
+            a = rng.normal(0.0, 0.05, shape)
+        else:
+            a = rng.normal(0.0, 0.1, shape)
+        sd[name] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def phase_eval() -> dict:
+    """``run_evaluation`` of the port on the card over seeded folders of
+    EVAL_FAKE fake and EVAL_REAL real 256^2 JPEGs (the Kaggle submission's
+    minimum and the Monet set), seeded Inception weights, batch 64 at 299^2
+    in float32 with TF32 off, KID and precision/recall on: first with the
+    real-stats cache empty, then from it. Asserts finite scores, the cache
+    hit with the first run's scores, the reports in the JAX schema, the
+    card's features for EVAL_CHECK_IMAGES images within 1e-4 of the
+    largest value of the port's CPU features, and that no hand-written
+    kernel launched. Prints the extractor's images/s on the card, each
+    stage's seconds and the decode thread's share of the wall time."""
+    import csv
+    import shutil
+
+    from gan_variant_research_tpu_torch.evalsuite.cli import run_evaluation
+    from gan_variant_research_tpu_torch.evalsuite.datasets import iter_batches
+    from gan_variant_research_tpu_torch.evalsuite.inception import InceptionFID
+    from gan_variant_research_tpu_torch.evalsuite.utils import enumerate_images
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+
+    root = REPO / "build" / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    write_jpeg_folder(root / "fake", EVAL_FAKE, 1)
+    write_jpeg_folder(root / "real", EVAL_REAL, 2)
+    weights = root / "inception_seeded.pth"
+    torch.save(seeded_inception_state_dict(), weights)
+    setup_s = time.perf_counter() - t
+    cfg = {"name": "smoke", "fake_dir": str(root / "fake"), "real_dir": str(root / "real"),
+           "real_mode": "folder", "out_dir": str(root / "reports"),
+           "cache_dir": str(root / "cache"), "batch_size": EVAL_BATCH, "num_workers": 8,
+           "img_size": EVAL_SIZE, "cosine_eps": 0.1, "use_cache": True,
+           "inception_weights": str(weights), "kid": True, "pr": True}
+
+    reset_counts(resblock)
+    reset_attn_counts(sa)
+    sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
+    runs = []
+    for _ in range(2):
+        stats = {}
+        t = time.perf_counter()
+        report = run_evaluation(copy.deepcopy(cfg), device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        runs.append((report, stats, time.perf_counter() - t))
+    launched = (counts(resblock), attn_counts(sa), dict(sa.ATTN_ROUTE_LAUNCHES))
+    check(launched == ((0, 0, 0), (0, 0, 0), dict.fromkeys(sa.ATTN_ROUTES, 0)),
+          f"eval launched hand-written kernels: {launched}")
+
+    (first, st1, wall1), (second, st2, wall2) = runs
+    scores = first["scores"]
+    values = [scores["fid"], scores["mifid"], scores["kid"]["kid_mean"],
+              scores["kid"]["kid_std"], scores["precision_recall"]["precision"],
+              scores["precision_recall"]["recall"]]
+    check(all(np.isfinite(v) for v in values), f"non-finite eval scores {scores}")
+    check(st1["extractor"]["images"] == EVAL_FAKE + EVAL_REAL
+          and st2["extractor"]["images"] == EVAL_FAKE,
+          f"images extracted {st1['extractor']['images']}, {st2['extractor']['images']}: "
+          "the second run must take the real set from the cache")
+    check(second["scores"] == scores, f"the cached run's scores {second['scores']} differ "
+          f"from the first run's {scores}")
+    check(set(first) == EVAL_REPORT_KEYS and set(first["run"]) == EVAL_RUN_KEYS
+          and set(scores) == {"mifid", "fid", "cosine_min_distance", "kid", "precision_recall"}
+          and first["run"]["num_fake"] == EVAL_FAKE and first["run"]["num_real"] == EVAL_REAL,
+          f"report keys {sorted(first)}, run {sorted(first['run'])}, scores {sorted(scores)}")
+    csvs = sorted((root / "reports").glob("*_worst_cases.csv"))
+    summaries = sorted((root / "cache" / "logs").glob("*.txt"))
+    check(len(csvs) == 2 and len(summaries) == 2 and len(list(
+        (root / "reports").glob("*_report.json"))) == 2, "reports, summaries or CSVs missing")
+    with open(csvs[0]) as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == EVAL_CSV_HEADER and len(rows) == 17, f"worst-cases CSV {rows[:2]}")
+    check("KAGGLE MiFID EVALUATION REPORT" in summaries[0].read_text(), "text summary")
+
+    # the card's features against the port's CPU features on the same images
+    paths = enumerate_images(root / "fake")[:EVAL_CHECK_IMAGES]
+    batch, _ = next(iter_batches(paths, EVAL_CHECK_IMAGES, EVAL_SIZE, 8))
+    card = InceptionFID(weights, device="cuda")
+    got = card.features_u8(batch)
+    want = InceptionFID(weights, device="cpu").features_u8(batch)
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    check(got.shape == (EVAL_CHECK_IMAGES, 2048) and err <= 1e-4 * scale,
+          f"card features {err} from the CPU's, over 1e-4 of {scale}")
+
+    # the extractor's rate on the card: device-resident uint8 batches
+    u8 = torch.from_numpy(batch).cuda()
+    ms = event_ms(lambda: card.features(u8), iters=10)
+    extract_s = [st["stage_s"]["4_building"] + st["stage_s"]["5_computing"] for st in (st1, st2)]
+    out = {"images_per_s": EVAL_CHECK_IMAGES / ms * 1e3, "batch_ms": ms,
+           "feature_max_abs_err": err, "feature_scale": scale, "scores": scores,
+           "stage_s": [st1["stage_s"], st2["stage_s"]], "wall_s": [wall1, wall2],
+           "decode_share": [st["extractor"]["decode_s"] / w
+                            for st, w in ((st1, wall1), (st2, wall2))]}
+    phase("eval", model="inception-v3-fid(seeded)", fake=EVAL_FAKE, real=EVAL_REAL,
+          img_size=EVAL_SIZE, batch=EVAL_BATCH, dtype="float32", tf32=False,
+          fid=f"{scores['fid']:.4f}", mifid=f"{scores['mifid']:.4f}",
+          kid=f"{scores['kid']['kid_mean']:.6f}",
+          precision=scores["precision_recall"]["precision"],
+          recall=scores["precision_recall"]["recall"], cache_hit_scores_equal=True,
+          card_vs_cpu_features_max_abs_err=f"{err:.3e}", feature_scale=f"{scale:.3e}",
+          kernel_launches=0, setup_s=f"{setup_s:.2f}")
+    for i, (st, wall) in enumerate(((st1, wall1), (st2, wall2))):
+        phase("eval_stages", run=("cache_empty", "cache_hit")[i], wall_s=f"{wall:.3f}",
+              images=st["extractor"]["images"], decode_s=f"{st['extractor']['decode_s']:.3f}",
+              decode_share=f"{out['decode_share'][i]:.4f}",
+              extract_images_per_s=f"{st['extractor']['images'] / extract_s[i]:.1f}",
+              **{f"{k}_s": f"{v:.3f}" for k, v in st["stage_s"].items()})
+    phase("timing", op="inception_fid_features", batch=EVAL_CHECK_IMAGES,
+          shape=f"{EVAL_CHECK_IMAGES}x{EVAL_SIZE}x{EVAL_SIZE}x3", dtype="float32", tf32=False,
+          batch_ms=f"{ms:.3f}", images_per_s=f"{out['images_per_s']:.1f}")
+    del card, u8
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -1825,8 +2117,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. attention widths, 9. a training run, each with its counts set to 0
-    phase_attention_widths(gen, np.random.default_rng(11))
+    widths = phase_attention_widths(gen, np.random.default_rng(11))
     run = phase_train_run()
+
+    # 10. MiFID/FID evaluation, with every count set to 0 (it launches none)
+    phase_eval()
 
     bf16 = torch.bfloat16
     serve_shape = (TIME_BATCH, 64, 64, 256)
@@ -1856,6 +2151,14 @@ def main() -> int:
                 "(gan_variant_research_tpu/models/attention.py:129)")
     times = attn["times"]
     attn_bwd = ["spatial_attention_dkv", "spatial_attention_dq"]
+
+    def dqk128(kind, i):
+        # the d_qk-128 instance (ngf 160 and 256 in attention_widths): its
+        # launches there, its times at DQK128_SHAPE (backward at its chunk)
+        row = widths["dqk128"][kind]
+        return {"dqk128_launches": widths["dqk128_launches"][i],
+                **{f"dqk128_{key}": val for key, val in row.items()}}
+
     print(json.dumps({"kernels": [
         # the times, bound and library time at the train step's batch 12,
         # where its `launches` run; the served batch of 32 beside them
@@ -1876,13 +2179,13 @@ def main() -> int:
             conv_bounds["dw"], grad_ms["dw"][2], train_run_launches=run["launches"][2]),
         row("spatial_attention", flash_py.format(758), attn_launches[0],
             errs[("fwd", ATTN_SHAPE, bf16)], times["fwd"][0], times["fwd"][1],
-            attn_bounds["fwd"], attn["library"]["fwd"]),
+            attn_bounds["fwd"], attn["library"]["fwd"], **dqk128("fwd", 0)),
         row("spatial_attention_dkv", flash_py.format(1121), attn_launches[1],
             errs[("dkv", ATTN_SHAPE, bf16)], times["dkv"][0], times["dkv"][1],
-            attn_bounds["dkv"], attn["library"]["bwd"], attn_bwd),
+            attn_bounds["dkv"], attn["library"]["bwd"], attn_bwd, **dqk128("dkv", 1)),
         row("spatial_attention_dq", flash_py.format(1456), attn_launches[2],
             errs[("dq", ATTN_SHAPE, bf16)], times["dq"][0], times["dq"][1],
-            attn_bounds["dq"], attn["library"]["bwd"], attn_bwd),
+            attn_bounds["dq"], attn["library"]["bwd"], attn_bwd, **dqk128("dq", 2)),
     ], "serve_launches": serve_launches}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,8 @@ names, so the mapping is one to one:
   (out, in), bias as is); ``style_gate_i/{gamma,beta}`` as they are.
 
 ``jax_tree_from_state_dict`` is the inverse, for the checkpoint writer.
+``inception_state_dict_from_jax`` maps the JAX package's FID InceptionV3
+tree to torch-fidelity's names (the evaluator's ``.npz`` weights).
 """
 
 from __future__ import annotations
@@ -134,6 +136,39 @@ def discriminator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
                     sd[f"{scale}.{conv}.{torch_name}"] = fn(node.pop(jax_name))
             if node:
                 raise ValueError(f"{scale}/{conv} has leaves the port cannot map: {sorted(node)}")
+    return sd
+
+
+_INCEPTION_LEAVES = {"conv_kernel": ("conv.weight", _hwio_to_oihw),
+                     "bn_scale": ("bn.weight", _tensor), "bn_bias": ("bn.bias", _tensor),
+                     "bn_mean": ("bn.running_mean", _tensor),
+                     "bn_var": ("bn.running_var", _tensor)}
+
+
+def inception_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``InceptionV3FID`` param tree (each BasicConv2d a node of
+    ``conv_kernel`` HWIO and ``bn_{scale,bias,mean,var}``, under
+    ``Conv2d_*`` and ``Mixed_*/branch*``) -> torch-fidelity's state-dict
+    names, ``<path>.conv.weight`` OIHW and ``<path>.bn.{weight,bias,
+    running_mean,running_var}``: the inverse of the JAX package's
+    ``_convert_torch_state_dict``. Raises on a node that is not a whole
+    BasicConv2d and on a leaf outside one."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, path: list[str]):
+        if any(leaf in node for leaf in _INCEPTION_LEAVES):
+            if set(node) != set(_INCEPTION_LEAVES):
+                raise ValueError(f"{'/'.join(path)} is not a BasicConv2d: leaves "
+                                 f"{sorted(node)}, want {sorted(_INCEPTION_LEAVES)}")
+            for jax_name, (torch_name, fn) in _INCEPTION_LEAVES.items():
+                sd[".".join(path) + "." + torch_name] = fn(node[jax_name])
+            return
+        for name, child in node.items():
+            if not isinstance(child, dict):
+                raise ValueError(f"{'/'.join([*path, name])} is a leaf outside a BasicConv2d")
+            walk(child, [*path, name])
+
+    walk(params, [])
     return sd
 
 

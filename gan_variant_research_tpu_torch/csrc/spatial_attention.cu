@@ -5,11 +5,12 @@
 // calls (jax/experimental/pallas/ops/tpu/flash_attention.py:
 // _flash_attention_impl, body _flash_attention_kernel_single_batch): the
 // core of the variant generator's SAGAN blocks, at the 64x64 trunk
-// n = 4096 keys and queries, d_qk = C/8 = 32, d_v = C = 256.
+// n = 4096 keys and queries, d_qk = C/8 = 32, d_v = C = 256 (d_qk up to 128
+// for the variant generators up to ngf 256).
 //
 // Contract (the library kernel's, with sm_scale = 1, non-causal):
 //   q, k (B, n, d_qk), v (B, n, d_v), one dtype, float32 or bfloat16,
-//   contiguous; 8 <= d_qk <= 64 and 8 <= d_v <= 256, both multiples of 8.
+//   contiguous; 8 <= d_qk <= 128 and 8 <= d_v <= 256, both multiples of 8.
 //   s = q k^T in float32 (bf16 x bf16 products are exact in float32), an
 //   online softmax in float32; bf16: the unnormalised p is rounded to
 //   bf16 before the p v product, which sums in float32; o is cast once to
@@ -37,8 +38,13 @@
 // width); o += bf16(p) v is wgmma.m64n256k16 with p packed from the s
 // accumulator straight into the A registers and v read from shared memory
 // as an MN-major operand in 64-column boxes with the 128-byte swizzle. The
-// 64 x 256 float32 accumulator is 128 registers a thread. float32: FMA
-// (never TF32) with s and p in shared memory.
+// 64 x 256 float32 accumulator is 128 registers a thread. d_qk above 64
+// takes the 128 instance: q and k rows are 256 bytes, wider than a TMA box
+// with the 128-byte swizzle, so they come in as two 64-column boxes, as v
+// does, and s's descriptors step to the second box after 64 columns; four
+// stages still fit (230,472 bytes of shared memory of the 232,448 a block
+// may have), and the registers are those of d_qk 64. float32: FMA (never
+// TF32) with s and p in shared memory.
 
 #include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
@@ -63,8 +69,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // and v, and the ring's mbarriers. q and k rows are 2 * DQK bytes (32, 64 or
 // 128) in the swizzle of that width (TMA writes it, the wgmma descriptors
 // name it: the 16-byte chunk bits of an address XOR the bits just above 128
-// bytes); v is four boxes of 64 columns, each BKW rows of 128 bytes in the
-// 128-byte swizzle. Every tile starts on a 1024-byte boundary.
+// bytes); at DQK 128 they are two boxes of 64 columns, each of 128-byte rows.
+// v is four boxes of 64 columns, each BKW rows of 128 bytes in the 128-byte
+// swizzle. Every tile starts on a 1024-byte boundary.
 
 constexpr int BQW = 128;      // query rows per block: two consumer warpgroups of 64
 constexpr int BKW = 64;       // keys per tile
@@ -77,13 +84,19 @@ constexpr int V_TILE = 4 * V_BOX;
 
 template <int DQK>
 struct Layout {
-  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr int BOXC = DQK < 64 ? DQK : 64;        // columns of a q or k box
+  static constexpr int NBOX = DQK / BOXC;                 // boxes of a q or k row
+  static constexpr int RB = 2 * BOXC;                     // bytes of a q or k row in a box
   static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BQW * RB;                  // [STAGES][BKW][RB]
-  static constexpr int V = K + STAGES * BKW * RB;         // [STAGES][4][BKW][128]
+  static constexpr int Q_BOX = BQW * RB;
+  static constexpr int K_BOX = BKW * RB;
+  static constexpr int K_TILE = NBOX * K_BOX;
+  static constexpr int Q = 0;                             // [NBOX][BQW][RB]
+  static constexpr int K = Q + NBOX * Q_BOX;              // [STAGES][NBOX][BKW][RB]
+  static constexpr int V = K + STAGES * K_TILE;           // [STAGES][4][BKW][128]
   static constexpr int BAR = V + STAGES * V_TILE;         // full[STAGES], empty[STAGES], q
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
+  static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
 // A wgmma shared-memory matrix descriptor: start address, leading and
@@ -244,18 +257,20 @@ __device__ __forceinline__ void consume_rows(uint32_t base, uint32_t q_rows, uin
   for (int j = 0; j < nk; ++j) {
     const int stage = j % STAGES;
     mbar_wait(full + 8 * stage, (j / STAGES) & 1);
-    const uint32_t k_tile = base + L::K + stage * BKW * L::RB;
+    const uint32_t k_tile = base + L::K + stage * L::K_TILE;
     const uint32_t v_tile = base + L::V + stage * V_TILE;
 
-    // s = q k^T: 64 rows x 64 keys
+    // s = q k^T: 64 rows x 64 keys, 16 columns of d_qk a product, box by box
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk)
-      wgmma_ss_n64(s, make_desc(q_rows + kk * 32, 16, 8 * L::RB, L::MODE),
-                   make_desc(k_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+    for (int kk = 0; kk < DQK / 16; ++kk) {
+      const int box = kk / (L::BOXC / 16), col = (kk % (L::BOXC / 16)) * 32;
+      wgmma_ss_n64(s, make_desc(q_rows + box * L::Q_BOX + col, 16, 8 * L::RB, L::MODE),
+                   make_desc(k_tile + box * L::K_BOX + col, 16, 8 * L::RB, L::MODE), kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -333,8 +348,8 @@ __device__ __forceinline__ void consume_rows(uint32_t base, uint32_t q_rows, uin
   }
 }
 
-// q, k and v come in through tensor maps over (B, n, d): boxes of (DQK,
-// 128, 1) for q, (DQK, 64, 1) for k and (64, 64, 1) for v.
+// q, k and v come in through tensor maps over (B, n, d): boxes of (BOXC,
+// 128, 1) for q, (BOXC, 64, 1) for k and (64, 64, 1) for v.
 template <int DQK>
 __global__ void __launch_bounds__(NT, 1)
 attn_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -364,14 +379,17 @@ attn_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     // producer: stage j waits until the consumers have released tile j - STAGES
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, BQW * L::RB);
-      tma_load(base + L::Q, &tq, 0, q0, b, q_full);
+      mbar_expect_tx(q_full, L::NBOX * L::Q_BOX);
+      for (int c = 0; c < L::NBOX; ++c)
+        tma_load(base + L::Q + c * L::Q_BOX, &tq, c * L::BOXC, q0, b, q_full);
       const int boxes = (dv + 63) / 64;   // v boxes wholly past d_v are not loaded
       for (int j = 0; j < (n + BKW - 1) / BKW; ++j) {
         const int s = j % STAGES;
         mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, BKW * L::RB + boxes * V_BOX);
-        tma_load(base + L::K + s * BKW * L::RB, &tk, 0, j * BKW, b, full + 8 * s);
+        mbar_expect_tx(full + 8 * s, L::K_TILE + boxes * V_BOX);
+        for (int c = 0; c < L::NBOX; ++c)
+          tma_load(base + L::K + s * L::K_TILE + c * L::K_BOX, &tk, c * L::BOXC, j * BKW, b,
+                   full + 8 * s);
         for (int c = 0; c < boxes; ++c)
           tma_load(base + L::V + s * V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, full + 8 * s);
       }
@@ -575,15 +593,16 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int n, int d, int box_
 template <int DQK>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                 int n, int dqk, int dv, cudaStream_t st) {
-  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  using L = Layout<DQK>;
+  constexpr CUtensorMapSwizzle swz_qk = L::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, n, dqk, DQK, BQW, swz_qk) ||
-      !tensor_map(&tk, k, B, n, dqk, DQK, BKW, swz_qk) ||
+  if (!tensor_map(&tq, q, B, n, dqk, L::BOXC, BQW, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, L::BOXC, BKW, swz_qk) ||
       !tensor_map(&tv, v, B, n, dv, 64, BKW, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Layout<DQK>::BYTES;
+  constexpr int smem = L::BYTES;
   auto kernel = attn_fwd_bf16<DQK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -602,14 +621,15 @@ extern "C" int spatial_attention_forward(const void* q, const void* k, const voi
                                          void* lse, int B, int n, int dqk, int dv, int dtype,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 64 || dqk % 8 || dv < 8 || dv > 256 ||
+  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 128 || dqk % 8 || dv < 8 || dv > 256 ||
       dv % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   float* l = static_cast<float*>(lse);
   if (dtype == 1) {
     if (dqk <= 16) return launch_bf16<16>(q, k, v, o, l, B, n, dqk, dv, st);
     if (dqk <= 32) return launch_bf16<32>(q, k, v, o, l, B, n, dqk, dv, st);
-    return launch_bf16<64>(q, k, v, o, l, B, n, dqk, dv, st);
+    if (dqk <= 64) return launch_bf16<64>(q, k, v, o, l, B, n, dqk, dv, st);
+    return launch_bf16<128>(q, k, v, o, l, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BQ * (dqk + 1) + 2 * BK * PS + 3 * BQ) * 4;

@@ -8,7 +8,10 @@
 //
 // Contract (the library kernel's, sm_scale = 1, non-causal):
 //   q, k (B, n, d_qk), v, do (B, n, d_v), one dtype, float32 or bfloat16,
-//   contiguous; lse (B, n) float32 from the forward; di (B, n) float32 =
+//   contiguous; 8 <= d_qk <= 128 and 8 <= d_v <= 256 (d_v <= 128 when
+//   d_qk > 64), both multiples of 8; lse (B, n) float32 from the forward (it
+//   depends on q and k alone, so one forward's lse serves any column chunk
+//   of v); di (B, n) float32 =
 //   sum(o * do) over d_v (computed outside, as the library does).
 //   p = exp(q k^T - lse) in float32;
 //   dV = p^T do, with p rounded to do's dtype before the product;
@@ -40,7 +43,12 @@
 // forward's v layout) and dK += bf16(ds^T) q (m64n{d_qk}k16, q MN-major).
 // Registers a consumer thread: dV 128, dK d_qk / 2, s^T and dp^T 32 each.
 // At d_qk 64 the query tile is 32 (s^T and dp^T 16 each) so that the 240
-// registers hold. float32: FMA (never TF32), p and ds through shared memory.
+// registers hold. At d_qk 128 dK alone takes 64: that instance takes d_v up
+// to 128 (dV 64 registers, m64n128k16), so a consumer holds dV 64 + dK 64 +
+// s^T, dp^T 16 each + the A fragments 16, and the caller cuts a wider v into
+// chunks of 128 columns, each with its own di; q and k rows (256 bytes) come
+// in as two 64-column boxes with the 128-byte swizzle. float32: FMA (never
+// TF32), p and ds through shared memory, d_v <= 128 at d_qk > 64 as well.
 
 #include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
@@ -58,12 +66,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma. Shared memory holds the block's k (128 rows) and v (four
-// 64-column boxes of 128 rows), a ring of query tiles (q, do in four
+// bf16 on wgmma. Shared memory holds the block's k (128 rows) and v (DVB
+// 64-column boxes of 128 rows), a ring of query tiles (q, do in DVB
 // 64-column boxes, lse and di), and the ring's mbarriers. q and k rows are
 // 2 * DQK bytes (32, 64 or 128) in the swizzle of that width (TMA writes
-// it, the wgmma descriptors name it); v and do rows are 128 bytes in the
-// 128-byte swizzle. Every tile starts on a 1024-byte boundary.
+// it, the wgmma descriptors name it), in two 64-column boxes at DQK 128; v
+// and do rows are 128 bytes in the 128-byte swizzle. Every tile starts on a
+// 1024-byte boundary.
 
 constexpr int BKB = 128;      // keys per block: two consumer warpgroups of 64
 constexpr int STAGES = 4;
@@ -73,20 +82,26 @@ constexpr int V_BOX = BKB * 128;   // one 64-column box of the block's v
 
 template <int DQK>
 struct Layout {
-  static constexpr int BQ = DQK == 64 ? 32 : 64;          // queries per tile
-  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr int BQ = DQK >= 64 ? 32 : 64;          // queries per tile
+  static constexpr int BOXC = DQK < 64 ? DQK : 64;        // columns of a q or k box
+  static constexpr int NBOX = DQK / BOXC;                 // boxes of a q or k row
+  static constexpr int RB = 2 * BOXC;                     // bytes of a q or k row in a box
   static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
+  static constexpr int DVB = DQK == 128 ? 2 : 4;          // 64-column boxes of v and do
   static constexpr int DO_BOX = BQ * 128;                 // one 64-column box of a do tile
-  static constexpr int Q_TILE = BQ * RB;
-  static constexpr int K = 0;                             // [BKB][RB]
-  static constexpr int V = K + BKB * RB;                  // [4][BKB][128]
-  static constexpr int Q = V + 4 * V_BOX;                 // [STAGES][BQ][RB]
-  static constexpr int DO = Q + STAGES * Q_TILE;          // [STAGES][4][BQ][128]
-  static constexpr int LSE = DO + STAGES * 4 * DO_BOX;    // [STAGES][BQ] float, log2 units
+  static constexpr int Q_BOX = BQ * RB;
+  static constexpr int Q_TILE = NBOX * Q_BOX;
+  static constexpr int K_BOX = BKB * RB;
+  static constexpr int K = 0;                             // [NBOX][BKB][RB]
+  static constexpr int V = K + NBOX * K_BOX;              // [DVB][BKB][128]
+  static constexpr int Q = V + DVB * V_BOX;               // [STAGES][NBOX][BQ][RB]
+  static constexpr int DO = Q + STAGES * Q_TILE;          // [STAGES][DVB][BQ][128]
+  static constexpr int LSE = DO + STAGES * DVB * DO_BOX;  // [STAGES][BQ] float, log2 units
   static constexpr int DI = LSE + STAGES * BQ * 4;        // [STAGES][BQ] float
   static constexpr int BAR = DI + STAGES * BQ * 4;        // full[STAGES], empty[STAGES], kv
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
-  static_assert(Q_TILE % 1024 == 0 && (BKB * RB) % 1024 == 0, "tiles on 1024-byte boundaries");
+  static_assert(Q_BOX % 1024 == 0 && K_BOX % 1024 == 0, "tiles on 1024-byte boundaries");
+  static_assert(BYTES <= 232448, "a block's shared memory");
 };
 
 // A wgmma shared-memory matrix descriptor: start address, leading and
@@ -231,6 +246,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 128, float32) += a (64 x 16, bf16 registers) b (16 x 128, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, float32) += a (64 x 16, bf16 registers) b (16 x 64, shared,
 // MN-major).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -310,10 +351,10 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
   const uint32_t k_rows = base + L::K + cw * 64 * L::RB;
   const uint32_t v_rows = base + L::V + cw * 64 * 128;
 
-  float dv_acc[128];
+  float dv_acc[32 * L::DVB];
   float dk_acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) dv_acc[i] = 0.f;
+  for (int i = 0; i < 32 * L::DVB; ++i) dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < DQK / 2; ++i) dk_acc[i] = 0.f;
   mbar_wait(kv_full, 0);
@@ -323,7 +364,7 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
     const int stage = j % STAGES;
     mbar_wait(full + 8 * stage, (j / STAGES) & 1);
     const uint32_t q_tile = base + L::Q + stage * L::Q_TILE;
-    const uint32_t do_tile = base + L::DO + stage * 4 * L::DO_BOX;
+    const uint32_t do_tile = base + L::DO + stage * L::DVB * L::DO_BOX;
 
     // s^T = k q^T and dp^T = v do^T: 64 keys x BQ queries each
     float st[BQ / 2], dp[BQ / 2];
@@ -331,9 +372,11 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
     for (int i = 0; i < BQ / 2; ++i) st[i] = dp[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk)
-      wgmma_ss(st, make_desc(k_rows + kk * 32, 16, 8 * L::RB, L::MODE),
-               make_desc(q_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+    for (int kk = 0; kk < DQK / 16; ++kk) {
+      const int box = kk / (L::BOXC / 16), col = (kk % (L::BOXC / 16)) * 32;
+      wgmma_ss(st, make_desc(k_rows + box * L::K_BOX + col, 16, 8 * L::RB, L::MODE),
+               make_desc(q_tile + box * L::Q_BOX + col, 16, 8 * L::RB, L::MODE), kk);
+    }
     for (int c = 0; c < boxes; ++c) {   // boxes wholly past d_v are not loaded
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -374,7 +417,7 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
       wgmma_rs(dv_acc, pa[kk], make_desc(do_tile + kk * 2048, L::DO_BOX, 1024, 1));
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs(dk_acc, da[kk], make_desc(q_tile + kk * 16 * L::RB, L::Q_TILE, 8 * L::RB, L::MODE));
+      wgmma_rs(dk_acc, da[kk], make_desc(q_tile + kk * 16 * L::RB, L::Q_BOX, 8 * L::RB, L::MODE));
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(dv_acc);
@@ -388,7 +431,7 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
     if (key >= n) continue;
     bf16* vrow = dv_img + (size_t)key * dv;
 #pragma unroll
-    for (int c = 0; c < 32; ++c)
+    for (int c = 0; c < 8 * L::DVB; ++c)
       if (c * 8 < dv)
         *reinterpret_cast<__nv_bfloat162*>(vrow + c * 8 + 2 * t) =
             __floats2bfloat162_rn(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
@@ -401,8 +444,8 @@ __device__ __forceinline__ void consume_keys(uint32_t base, const float* __restr
   }
 }
 
-// q, k, v and do come in through tensor maps over (B, n, d): boxes of (DQK,
-// BQ, 1) for q, (DQK, 128, 1) for k, (64, 128, 1) for v and (64, BQ, 1)
+// q, k, v and do come in through tensor maps over (B, n, d): boxes of (BOXC,
+// BQ, 1) for q, (BOXC, 128, 1) for k, (64, 128, 1) for v and (64, BQ, 1)
 // for do.
 template <int DQK>
 __global__ void __launch_bounds__(NT, 1)
@@ -440,8 +483,9 @@ attn_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        mbar_expect_tx(kv_full, BKB * L::RB + boxes * V_BOX);
-        tma_load(base + L::K, &tk, 0, k0, b, kv_full);
+        mbar_expect_tx(kv_full, L::NBOX * L::K_BOX + boxes * V_BOX);
+        for (int c = 0; c < L::NBOX; ++c)
+          tma_load(base + L::K + c * L::K_BOX, &tk, c * L::BOXC, k0, b, kv_full);
         for (int c = 0; c < boxes; ++c)
           tma_load(base + L::V + c * V_BOX, &tv, 64 * c, k0, b, kv_full);
       }
@@ -458,9 +502,12 @@ attn_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
         }
         if (lane == 0) {
           mbar_expect_tx(full + 8 * s, L::Q_TILE + boxes * L::DO_BOX);
-          tma_load(base + L::Q + s * L::Q_TILE, &tq, 0, i0, b, full + 8 * s);
+          for (int c = 0; c < L::NBOX; ++c)
+            tma_load(base + L::Q + s * L::Q_TILE + c * L::Q_BOX, &tq, c * L::BOXC, i0, b,
+                     full + 8 * s);
           for (int c = 0; c < boxes; ++c)
-            tma_load(base + L::DO + (s * 4 + c) * L::DO_BOX, &tdo, 64 * c, i0, b, full + 8 * s);
+            tma_load(base + L::DO + (s * L::DVB + c) * L::DO_BOX, &tdo, 64 * c, i0, b,
+                     full + 8 * s);
         } else {
           mbar_arrive(full + 8 * s);
         }
@@ -478,12 +525,14 @@ attn_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 // ---------------------------------------------------------------------------
 // float32 on FMA: 256 threads; p and ds of a (64 query x 64 key) tile go
 // through shared memory; thread (ty, tx) accumulates dV for keys ty + 16a
-// and value columns tx + 16c, dK for the same keys and d_qk columns tx + 16c.
+// and value columns tx + 16c, dK for the same keys and d_qk columns tx + 16c
+// (c < KC: 4 up to d_qk 64, 8 up to 128).
 
 constexpr int BQ = 64;   // queries per tile
 constexpr int BK = 64;   // keys per block
 constexpr int PS = BK + 1;
 
+template <int KC>
 __global__ void __launch_bounds__(256, 1)
 attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
@@ -517,13 +566,13 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / dv, c = i % dv;
     vs[r * VS + c] = k0 + r < n ? vb[(size_t)(k0 + r) * dv + c] : 0.f;
   }
-  float dv_acc[4][16], dk_acc[4][4];
+  float dv_acc[4][16], dk_acc[4][KC];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
 #pragma unroll
     for (int c = 0; c < 16; ++c) dv_acc[a][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[a][c] = 0.f;
+    for (int c = 0; c < KC; ++c) dk_acc[a][c] = 0.f;
   }
 
   const int nq = (n + BQ - 1) / BQ;
@@ -588,7 +637,7 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     // dV[key][c] += sum_q p[q][key] do[q][c]; dK[key][d] += sum_q ds[q][key] q[q][d]
     for (int r = 0; r < BQ; ++r) {
-      float pa[4], da[4], ov[16], qv[4];
+      float pa[4], da[4], ov[16], qv[KC];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         pa[a] = ps[r * PS + ty + 16 * a];
@@ -597,13 +646,13 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 16; ++c) ov[c] = tx + 16 * c < dv ? dos[r * VS + tx + 16 * c] : 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) qv[c] = tx + 16 * c < dqk ? qs[r * QS + tx + 16 * c] : 0.f;
+      for (int c = 0; c < KC; ++c) qv[c] = tx + 16 * c < dqk ? qs[r * QS + tx + 16 * c] : 0.f;
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
 #pragma unroll
         for (int c = 0; c < 16; ++c) dv_acc[a][c] = fmaf(pa[a], ov[c], dv_acc[a][c]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) dk_acc[a][c] = fmaf(da[a], qv[c], dk_acc[a][c]);
+        for (int c = 0; c < KC; ++c) dk_acc[a][c] = fmaf(da[a], qv[c], dk_acc[a][c]);
       }
     }
   }
@@ -616,7 +665,7 @@ attn_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 16; ++c)
       if (tx + 16 * c < dv) dv_out[((size_t)b * n + key) * dv + tx + 16 * c] = dv_acc[a][c];
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < KC; ++c)
       if (tx + 16 * c < dqk) dk[((size_t)b * n + key) * dqk + tx + 16 * c] = dk_acc[a][c];
   }
 }
@@ -668,12 +717,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* di, void* dk, void* dv_out, int B, int n,
                 int dqk, int dv, cudaStream_t st) {
   using L = Layout<DQK>;
-  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  constexpr CUtensorMapSwizzle swz_qk = L::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map(&tq, q, B, n, dqk, DQK, L::BQ, swz_qk) ||
-      !tensor_map(&tk, k, B, n, dqk, DQK, BKB, swz_qk) ||
+  if (!tensor_map(&tq, q, B, n, dqk, L::BOXC, L::BQ, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, L::BOXC, BKB, swz_qk) ||
       !tensor_map(&tv, v, B, n, dv, 64, BKB, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&tdo, dout, B, n, dv, 64, L::BQ, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -691,30 +740,33 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k (B, n, dqk), v, dout (B, n, dv) in one dtype (0 = float32,
 // 1 = bfloat16); lse, di (B, n) float32; dk (B, n, dqk) and dv_out
-// (B, n, dv) in the input dtype. Pointers 16-byte aligned. Returns a
-// cudaError_t (0 = cudaSuccess); the launch is asynchronous on `stream`.
+// (B, n, dv) in the input dtype; d_v <= 128 when d_qk > 64. Pointers
+// 16-byte aligned. Returns a cudaError_t (0 = cudaSuccess,
+// cudaErrorInvalidValue for shapes outside the contract); the launch is
+// asynchronous on `stream`.
 extern "C" int spatial_attention_dkv(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* di, void* dk,
                                      void* dv_out, int B, int n, int dqk, int dv, int dtype,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 64 || dqk % 8 || dv < 8 || dv > 256 ||
-      dv % 8)
+  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 128 || dqk % 8 || dv < 8 ||
+      dv > (dqk > 64 ? 128 : 256) || dv % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (dtype == 1) {
     if (dqk <= 16) return launch_bf16<16>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
     if (dqk <= 32) return launch_bf16<32>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
-    return launch_bf16<64>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
+    if (dqk <= 64) return launch_bf16<64>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
+    return launch_bf16<128>(q, k, v, dout, l, d, dk, dv_out, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BK * (dqk + 1) + 2 * BK * (dv + 1) + 2 * BQ * PS + 2 * BQ) * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_dkv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = dqk <= 64 ? attn_dkv_f32<4> : attn_dkv_f32<8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + BK - 1) / BK, 1, B);
-  attn_dkv_f32<<<grid, 256, smem, st>>>(
+  kernel<<<grid, 256, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), l, d, static_cast<float*>(dk), static_cast<float*>(dv_out),
       n, dqk, dv);

@@ -8,7 +8,9 @@
 //
 // Contract (the library kernel's, sm_scale = 1, non-causal):
 //   q, k (B, n, d_qk), v, do (B, n, d_v), one dtype, float32 or bfloat16,
-//   contiguous; lse, di (B, n) float32 (see spatial_attention_dkv.cu).
+//   contiguous; 8 <= d_qk <= 128 and 8 <= d_v <= 256 (d_v <= 128 when
+//   d_qk > 64), both multiples of 8; lse, di (B, n) float32 (see
+//   spatial_attention_dkv.cu).
 //   p = exp(q k^T - lse), dp = do v^T, ds = p (dp - di) in float32; ds is
 //   rounded to k's dtype before dQ = ds k, which sums in float32; dq is
 //   cast once to the input dtype.
@@ -41,8 +43,12 @@
 // product and tile j + 1's s and dp as one wgmma group, then waits for them,
 // releases stage j and computes tile j + 1's ds while the other consumer's
 // group runs. lse and di of a thread's two rows are read once (+inf and 0
-// past n, so that such a row weighs nothing). float32: FMA (never TF32), ds
-// through shared memory.
+// past n, so that such a row weighs nothing). At d_qk 128 dQ takes 64
+// registers: that instance takes d_v up to 128, so do is 32 registers of A
+// fragments (dQ 64 + do 32 + s, dp 32 each + ds 16), a wider v is cut into
+// chunks of 128 columns by the caller, and q and k rows (256 bytes) come in
+// as two 64-column boxes with the 128-byte swizzle. float32: FMA (never
+// TF32), ds through shared memory, d_v <= 128 at d_qk > 64 as well.
 
 #include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
@@ -60,12 +66,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma. Shared memory holds the block's q (128 rows) and do (four
-// 64-column boxes of 128 rows), a ring of key tiles (k, v in four 64-column
+// bf16 on wgmma. Shared memory holds the block's q (128 rows) and do (DVB
+// 64-column boxes of 128 rows), a ring of key tiles (k, v in DVB 64-column
 // boxes) and the mbarriers. q and k rows are 2 * DQK bytes (32, 64 or 128)
 // in the swizzle of that width (TMA writes it, the wgmma descriptors name
-// it); v and do rows are 128 bytes in the 128-byte swizzle. Every tile
-// starts on a 1024-byte boundary.
+// it), in two 64-column boxes at DQK 128; v and do rows are 128 bytes in the
+// 128-byte swizzle. Every tile starts on a 1024-byte boundary.
 
 constexpr int BQW = 128;      // queries per block: two consumer warpgroups of 64
 constexpr int BKW = 64;       // keys per tile
@@ -73,21 +79,27 @@ constexpr int NT = 384;       // threads per block: producer + two consumers
 constexpr int CONSUMERS = 256;
 constexpr int DO_BOX = BQW * 128;   // one 64-column box of the block's do
 constexpr int V_BOX = BKW * 128;    // one 64-column box of a v tile
-constexpr int V_TILE = 4 * V_BOX;
 
 template <int DQK>
 struct Layout {
   static constexpr int STAGES = DQK == 64 ? 3 : 4;        // four do not fit at d_qk 64
-  static constexpr int RB = 2 * DQK;                      // bytes of a q or k row
+  static constexpr int BOXC = DQK < 64 ? DQK : 64;        // columns of a q or k box
+  static constexpr int NBOX = DQK / BOXC;                 // boxes of a q or k row
+  static constexpr int RB = 2 * BOXC;                     // bytes of a q or k row in a box
   static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;   // wgmma swizzle code
-  static constexpr int Q = 0;                             // [BQW][RB]
-  static constexpr int DO = Q + BQW * RB;                 // [4][BQW][128]
-  static constexpr int K = DO + 4 * DO_BOX;               // [STAGES][BKW][RB]
-  static constexpr int V = K + STAGES * BKW * RB;         // [STAGES][4][BKW][128]
+  static constexpr int DVB = DQK == 128 ? 2 : 4;          // 64-column boxes of v and do
+  static constexpr int Q_BOX = BQW * RB;
+  static constexpr int K_BOX = BKW * RB;
+  static constexpr int K_TILE = NBOX * K_BOX;
+  static constexpr int V_TILE = DVB * V_BOX;
+  static constexpr int Q = 0;                             // [NBOX][BQW][RB]
+  static constexpr int DO = Q + NBOX * Q_BOX;             // [DVB][BQW][128]
+  static constexpr int K = DO + DVB * DO_BOX;             // [STAGES][NBOX][BKW][RB]
+  static constexpr int V = K + STAGES * K_TILE;           // [STAGES][DVB][BKW][128]
   static constexpr int BAR = V + STAGES * V_TILE;         // full[STAGES], empty[STAGES], q/do
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1) + 1024;   // + slack to align the base
   static_assert(BYTES <= 232448, "a block's shared memory");
-  static_assert((BQW * RB) % 1024 == 0 && (BKW * RB) % 1024 == 0, "tiles on 1024-byte boundaries");
+  static_assert(Q_BOX % 1024 == 0 && K_BOX % 1024 == 0, "tiles on 1024-byte boundaries");
 };
 
 // A wgmma shared-memory matrix descriptor: start address, leading and
@@ -205,6 +217,32 @@ __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 128, float32) += a (64 x 16, bf16 registers) b (16 x 128, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, float32) += a (64 x 16, bf16 registers) b (16 x 64, shared,
 // MN-major).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -277,14 +315,16 @@ __device__ __forceinline__ void turn_pass(int cw) {
 // the A registers and v K-major. Boxes of v wholly past d_v are not loaded.
 template <int DQK>
 __device__ __forceinline__ void mma_s_dp(float (&s)[BKW / 2], float (&dp)[BKW / 2],
-                                           const uint32_t (&do_a)[16][4], uint32_t q_rows,
+                                           const uint32_t (&do_a)[4 * Layout<DQK>::DVB][4], uint32_t q_rows,
                                            uint32_t k_tile, uint32_t v_tile, int boxes) {
   using L = Layout<DQK>;
 #pragma unroll
-  for (int kk = 0; kk < DQK / 16; ++kk)
-    wgmma_ss(s, make_desc(q_rows + kk * 32, 16, 8 * L::RB, L::MODE), make_desc(k_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    const int box = kk / (L::BOXC / 16), col = (kk % (L::BOXC / 16)) * 32;
+    wgmma_ss(s, make_desc(q_rows + box * L::Q_BOX + col, 16, 8 * L::RB, L::MODE), make_desc(k_tile + box * L::K_BOX + col, 16, 8 * L::RB, L::MODE), kk);
+  }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < L::DVB; ++c) {
     if (c < boxes) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -359,9 +399,9 @@ __device__ __forceinline__ void consume_queries(uint32_t base, int cw, uint32_t 
   mbar_wait(qdo_full, 0);
   const int lrow = cw * 64 + wl * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
   const uint32_t do_row = base + L::DO + lrow * 128;
-  uint32_t do_a[16][4];
+  uint32_t do_a[4 * L::DVB][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < L::DVB; ++c)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       do_a[4 * c + kk][0] = do_a[4 * c + kk][1] = do_a[4 * c + kk][2] = do_a[4 * c + kk][3] = 0u;
@@ -391,7 +431,7 @@ __device__ __forceinline__ void consume_queries(uint32_t base, int cw, uint32_t 
     const bool next = j + 1 < nk;
     const int stage1 = (j + 1) % STAGES;
     if (next) mbar_wait(full + 8 * stage1, ((j + 1) / STAGES) & 1);
-    const uint32_t k_tile = base + L::K + stage * BKW * L::RB;
+    const uint32_t k_tile = base + L::K + stage * L::K_TILE;
 
     // dQ += bf16(ds) k (k as an MN-major operand), then tile j + 1's s, dp
     turn_wait(cw);
@@ -399,10 +439,10 @@ __device__ __forceinline__ void consume_queries(uint32_t base, int cw, uint32_t 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKW / 16; ++kk)
-      wgmma_rs(dq_acc, da[kk], make_desc(k_tile + kk * 16 * L::RB, BKW * L::RB, 8 * L::RB, L::MODE));
+      wgmma_rs(dq_acc, da[kk], make_desc(k_tile + kk * 16 * L::RB, L::K_BOX, 8 * L::RB, L::MODE));
     if (next)
-      mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K + stage1 * BKW * L::RB,
-                      base + L::V + stage1 * V_TILE, boxes);
+      mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K + stage1 * L::K_TILE,
+                      base + L::V + stage1 * L::V_TILE, boxes);
     wgmma_commit();
     // every turn of consumer 0 is answered by one of consumer 1, whose last
     // turn passes nothing
@@ -428,8 +468,8 @@ __device__ __forceinline__ void consume_queries(uint32_t base, int cw, uint32_t 
   }
 }
 
-// q, k, v and do come in through tensor maps over (B, n, d): boxes of (DQK,
-// 128, 1) for q, (DQK, BKW, 1) for k, (64, BKW, 1) for v and (64, 128, 1)
+// q, k, v and do come in through tensor maps over (B, n, d): boxes of (BOXC,
+// 128, 1) for q, (BOXC, BKW, 1) for k, (64, BKW, 1) for v and (64, 128, 1)
 // for do.
 template <int DQK>
 __global__ void __launch_bounds__(NT, 1)
@@ -463,17 +503,20 @@ attn_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     // producer: stage j waits until the consumers have released tile j - STAGES
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qdo_full, BQW * L::RB + boxes * DO_BOX);
-      tma_load(base + L::Q, &tq, 0, q0, b, qdo_full);
+      mbar_expect_tx(qdo_full, L::NBOX * L::Q_BOX + boxes * DO_BOX);
+      for (int c = 0; c < L::NBOX; ++c)
+        tma_load(base + L::Q + c * L::Q_BOX, &tq, c * L::BOXC, q0, b, qdo_full);
       for (int c = 0; c < boxes; ++c)
         tma_load(base + L::DO + c * DO_BOX, &tdo, 64 * c, q0, b, qdo_full);
       for (int j = 0; j < (n + BKW - 1) / BKW; ++j) {
         const int s = j % STAGES;
         mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, BKW * L::RB + boxes * V_BOX);
-        tma_load(base + L::K + s * BKW * L::RB, &tk, 0, j * BKW, b, full + 8 * s);
+        mbar_expect_tx(full + 8 * s, L::K_TILE + boxes * V_BOX);
+        for (int c = 0; c < L::NBOX; ++c)
+          tma_load(base + L::K + s * L::K_TILE + c * L::K_BOX, &tk, c * L::BOXC, j * BKW, b,
+                   full + 8 * s);
         for (int c = 0; c < boxes; ++c)
-          tma_load(base + L::V + s * V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, full + 8 * s);
+          tma_load(base + L::V + s * L::V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, full + 8 * s);
       }
     }
   } else {
@@ -487,12 +530,13 @@ attn_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 // ---------------------------------------------------------------------------
 // float32 on FMA: 256 threads, 64 query rows a block; ds of a (64 x 64)
 // tile goes through shared memory; thread (ty, tx) accumulates dQ for rows
-// ty + 16a and d_qk columns tx + 16c.
+// ty + 16a and d_qk columns tx + 16c (c < KC: 4 up to d_qk 64, 8 up to 128).
 
 constexpr int BQ_F32 = 64;
 constexpr int BK = 64;   // keys per tile
 constexpr int PS = BK + 1;
 
+template <int KC>
 __global__ void __launch_bounds__(256, 1)
 attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
@@ -530,11 +574,11 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     lse_s[tid] = ok ? lse[(size_t)b * n + q0 + tid] : INFINITY;
     di_s[tid] = ok ? di[(size_t)b * n + q0 + tid] : 0.f;
   }
-  float acc[4][4];
+  float acc[4][KC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < KC; ++c) acc[a][c] = 0.f;
 
   const int nk = (n + BK - 1) / BK;
   for (int j = 0; j < nk; ++j) {
@@ -589,15 +633,15 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     for (int kk = 0; kk < BK; ++kk) {
-      float da[4], kv[4];
+      float da[4], kv[KC];
 #pragma unroll
       for (int a = 0; a < 4; ++a) da[a] = dss[(ty + 16 * a) * PS + kk];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = tx + 16 * c < dqk ? ks[kk * QS + tx + 16 * c] : 0.f;
+      for (int c = 0; c < KC; ++c) kv[c] = tx + 16 * c < dqk ? ks[kk * QS + tx + 16 * c] : 0.f;
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(da[a], kv[c], acc[a][c]);
+        for (int c = 0; c < KC; ++c) acc[a][c] = fmaf(da[a], kv[c], acc[a][c]);
     }
   }
 
@@ -606,7 +650,7 @@ attn_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * a;
     if (row >= n) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < KC; ++c)
       if (tx + 16 * c < dqk) dq[((size_t)b * n + row) * dqk + tx + 16 * c] = acc[a][c];
   }
 }
@@ -656,16 +700,17 @@ template <int DQK>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* di, void* dq, int B, int n, int dqk, int dv,
                  cudaStream_t st) {
-  constexpr CUtensorMapSwizzle swz_qk = DQK == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                        : DQK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  using L = Layout<DQK>;
+  constexpr CUtensorMapSwizzle swz_qk = L::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map(&tq, q, B, n, dqk, DQK, BQW, swz_qk) ||
-      !tensor_map(&tk, k, B, n, dqk, DQK, BKW, swz_qk) ||
+  if (!tensor_map(&tq, q, B, n, dqk, L::BOXC, BQW, swz_qk) ||
+      !tensor_map(&tk, k, B, n, dqk, L::BOXC, BKW, swz_qk) ||
       !tensor_map(&tv, v, B, n, dv, 64, BKW, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&tdo, dout, B, n, dv, 64, BQW, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Layout<DQK>::BYTES;
+  constexpr int smem = L::BYTES;
   auto kernel = attn_dq_wgmma<DQK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -677,30 +722,32 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, k (B, n, dqk), v, dout (B, n, dv) in one dtype (0 = float32,
-// 1 = bfloat16); lse, di (B, n) float32; dq (B, n, dqk) in the input dtype.
-// Pointers 16-byte aligned. Returns a cudaError_t (0 = cudaSuccess); the
-// launch is asynchronous on `stream`.
+// 1 = bfloat16); lse, di (B, n) float32; dq (B, n, dqk) in the input dtype;
+// d_v <= 128 when d_qk > 64. Pointers 16-byte aligned. Returns a
+// cudaError_t (0 = cudaSuccess, cudaErrorInvalidValue for shapes outside the
+// contract); the launch is asynchronous on `stream`.
 extern "C" int spatial_attention_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di, void* dq,
                                     int B, int n, int dqk, int dv, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 64 || dqk % 8 || dv < 8 || dv > 256 ||
-      dv % 8)
+  if (B < 1 || B > 65535 || n < 1 || dqk < 8 || dqk > 128 || dqk % 8 || dv < 8 ||
+      dv > (dqk > 64 ? 128 : 256) || dv % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (dtype == 1) {
     if (dqk <= 16) return launch_wgmma<16>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
     if (dqk <= 32) return launch_wgmma<32>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
-    return launch_wgmma<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
+    if (dqk <= 64) return launch_wgmma<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
+    return launch_wgmma<128>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (2 * BQ_F32 * (dqk + 1) + 2 * BK * (dv + 1) + BQ_F32 * PS + 2 * BQ_F32) * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_dq_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = dqk <= 64 ? attn_dq_f32<4> : attn_dq_f32<8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + BQ_F32 - 1) / BQ_F32, 1, B);
-  attn_dq_f32<<<grid, 256, smem, st>>>(
+  kernel<<<grid, 256, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), l, d, static_cast<float*>(dq), n, dqk, dv);
   return static_cast<int>(cudaGetLastError());

@@ -6,12 +6,16 @@ and parameters carry the JAX names (``query``, ``key``, ``value``, ``out``
 and ``gamma``; ``fc1`` and ``fc2``; ``gamma`` and ``beta``), so
 ``convert.py`` maps one to one. All three are identities at init.
 
-- ``SelfAttention2d``: ``x + gamma * out(softmax(q k^T) v)`` with 1x1 convs;
-  its core is ``ops/kernels/spatial_attention.py::spatial_attention``: the
-  hand-written kernels on a CUDA tensor, the plain version on the CPU
-  (looked up on its module at each call, so a comparison can route it). The
-  JAX ``flash`` routing (a TPU rule on n and C) does not carry over: the
-  kernels take any n, and ``attn_flash`` is only validated.
+- ``SelfAttention2d``: ``x + gamma * out(softmax(q k^T) v)`` with 1x1 convs.
+  Its core is picked by d_qk = C / reduction alone, on both devices: up to
+  128, where the JAX package can run its flash kernel, it is
+  ``ops/kernels/spatial_attention.py::spatial_attention`` (the hand-written
+  kernels on a CUDA tensor, the plain version on the CPU; looked up on its
+  module at each call, so a comparison can route it); past 128, where the
+  JAX package runs its einsum core, it is ``einsum_attention``, that core's
+  counterpart in stock PyTorch ops. The JAX ``flash`` routing (a TPU rule
+  on n and C) does not carry over: the kernels take any n, and
+  ``attn_flash`` is only validated.
 - ``ChannelAttention``: ``x * 2 sigmoid(fc2(relu(fc1(mean(x)))))``.
 - ``StyleGate``: ``alpha x + (1 - alpha)(gamma IN(x) + beta)`` for a
   pre-drawn per-sample ``alpha`` (B,); without one it returns ``x``, as the
@@ -29,6 +33,20 @@ import torch.nn as nn
 from gan_variant_research_tpu_torch.models.layers import Conv2d
 from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as attention_core
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm, uniform_fan_in_
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The JAX ``SelfAttention2d``'s einsum core (models/attention.py's
+    non-flash branch), at its rounding points: q k^T of the inputs' values
+    summed in float32, the softmax in float32, the weights cast to v's
+    dtype, then the weighted sum in that dtype. The (B, n, n) map is
+    materialised, as XLA does there; on the card its call is counted under
+    ``ATTN_ROUTE_LAUNCHES["einsum"]`` (no hand-written kernel runs)."""
+    logits = torch.matmul(q.float(), k.float().transpose(1, 2))
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    if v.device.type == "cuda":
+        attention_core.ATTN_ROUTE_LAUNCHES["einsum"] += 1
+    return torch.matmul(attn, v)
 
 
 class SelfAttention2d(nn.Module):
@@ -55,7 +73,11 @@ class SelfAttention2d(nn.Module):
         q = self.query(x).reshape(b, h * w, -1)
         k = self.key(x).reshape(b, h * w, -1)
         v = self.value(x).reshape(b, h * w, c)
-        out = self.out(attention_core.spatial_attention(q, k, v).reshape(b, h, w, c))
+        if attention_core.attention_route(q.shape[2], c)[0] == "einsum":
+            core = einsum_attention
+        else:
+            core = attention_core.spatial_attention
+        out = self.out(core(q, k, v).reshape(b, h, w, c))
         return x + self.gamma.to(x.dtype) * out
 
 

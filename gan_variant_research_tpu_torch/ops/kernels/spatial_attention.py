@@ -18,15 +18,19 @@ with ``sm_scale=1``, non-causal), and of the einsum core it replaces
   the row log-sum-exp of the logits, ``di`` (B, n) float32 is ``sum(o * do)``
   over d_v, taken outside the kernels as the library takes it.
 
-The kernels take one head. Their limits: 8 <= d_qk <= 64 and 8 <= d_v <=
-256, both multiples of 8, any n >= 1, B <= 65535; a CUDA tensor outside
+The kernels take one head. Their limits: 8 <= d_qk <= 128 and 8 <= d_v <=
+256, both multiples of 8, any n >= 1, B <= 65535; the backward kernels take
+d_v <= 128 where d_qk > 64 (``backward_width``: their dK or dQ accumulator
+takes the registers that a wider d_v would need). A CUDA tensor outside
 them raises in the wrappers. ``spatial_attention`` brings every width the
-JAX package runs with d_qk <= 64 to them, by shape only
-(``attention_route``), with the adaptations the JAX
-``flash_spatial_attention`` makes for its 128-wide heads, both exact:
+JAX package runs through its flash kernel (d_qk <= 128) to them, by shape
+only (``attention_route``), with the adaptations the JAX
+``flash_spatial_attention`` makes for its 128-wide heads, all exact:
 
-- ``padded``: d_qk and d_v zero-padded to the next multiple of 8 (at least
-  8), o sliced (zero columns add nothing to q k^T, do v^T or ``di``);
+- ``padded``: d_qk zero-padded to the next multiple of 8 (at least 8) up
+  to 64, and to 128 past 64 (the JAX flash path pads to its 128-wide head),
+  d_v to the next multiple of 8, o sliced (zero columns add nothing to
+  q k^T, do v^T or ``di``);
 - ``split``: d_v > 256 cut into ceil(d_v / 256) equal column chunks, each
   a multiple of 8 (384 -> 2 x 192), run with the same q and k; o is their
   concatenation; in the backward each chunk takes its own ``di_c = sum
@@ -34,13 +38,21 @@ JAX package runs with d_qk <= 64 to them, by shape only
   over the chunks in float32 and cast once;
 - ``direct``: the kernels' own widths.
 
-d_qk > 64 (a variant generator wider than ngf 128) stays refused on the
-card. A CUDA tensor launches the kernel (built at first use) or raises; the
-plain versions serve CPU tensors, through the same routes.
-``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES`` and ``ATTN_DQ_LAUNCHES`` count the
-kernel launches, ``ATTN_ROUTE_LAUNCHES`` the forward launches by the route
-the caller names (a raw call is ``direct``), both where the forward
-launches.
+On every route the backward cuts each forward chunk again into column
+chunks of at most ``backward_width(d_qk)`` (256 -> 2 x 128 on the d_qk-128
+instance), each with its own ``di``; the forward's ``lse`` serves them all,
+since it depends on q and k alone.
+
+Past d_qk 128 the JAX package runs its einsum core, not the flash kernel;
+``attention_route`` names that ``einsum``, and the port runs it in
+``models/attention.py::einsum_attention``: ``spatial_attention`` refuses
+it. Nothing the JAX package runs is refused. A CUDA tensor launches the
+kernel (built at first use) or raises; the plain versions serve CPU
+tensors, through the same routes. ``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES``
+and ``ATTN_DQ_LAUNCHES`` count the kernel launches, ``ATTN_ROUTE_LAUNCHES``
+the forward launches by the route the caller names (a raw call is
+``direct``), both where the forward launches, and the einsum core's calls
+on the card under ``einsum``.
 
 ``spatial_attention_dkv_contract`` and ``spatial_attention_dq_contract`` are
 the backward as the library kernel rounds it (p and ds in the inputs' dtype,
@@ -60,11 +72,12 @@ from torch.autograd.function import once_differentiable
 ATTN_LAUNCHES = 0
 ATTN_DKV_LAUNCHES = 0
 ATTN_DQ_LAUNCHES = 0
-ATTN_ROUTES = ("direct", "padded", "split")
+ATTN_ROUTES = ("direct", "padded", "split", "einsum")
+KERNEL_ROUTES = ATTN_ROUTES[:3]
 ATTN_ROUTE_LAUNCHES = dict.fromkeys(ATTN_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_DQK, _MAX_DV, _MAX_BATCH = 64, 256, 65535
+_MAX_DQK, _MAX_DV, _MAX_BATCH = 128, 256, 65535
 
 
 def _load(name: str, symbol: str, n_ptr: int, n_int: int):
@@ -103,14 +116,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v must share a CPU or CUDA device, got {sorted(devs)}")
 
 
-def _check_cuda(*ts: torch.Tensor) -> None:
-    """What the kernels take: the limits above, contiguous 16-byte aligned
-    tensors."""
+def backward_width(d_qk: int) -> int:
+    """The widest d_v the backward kernels take at this d_qk: 256 up to
+    d_qk 64, 128 on the d_qk-128 instance."""
+    return _MAX_DV if d_qk <= 64 else 128
+
+
+def _check_cuda(*ts: torch.Tensor, max_dv: int = _MAX_DV) -> None:
+    """What the kernels take: the limits above (d_v up to ``max_dv``),
+    contiguous 16-byte aligned tensors."""
     b, n, dqk = ts[0].shape
     dv = ts[2].shape[2]
-    if not (8 <= dqk <= _MAX_DQK and dqk % 8 == 0 and 8 <= dv <= _MAX_DV and dv % 8 == 0):
+    if not (8 <= dqk <= _MAX_DQK and dqk % 8 == 0 and 8 <= dv <= max_dv and dv % 8 == 0):
         raise ValueError(f"the attention kernels take d_qk in [8, {_MAX_DQK}] and d_v in "
-                         f"[8, {_MAX_DV}], multiples of 8; got d_qk={dqk}, d_v={dv}")
+                         f"[8, {max_dv}], multiples of 8; got d_qk={dqk}, d_v={dv}")
     if not 1 <= b <= _MAX_BATCH or n < 1:
         raise ValueError(f"the attention kernels take 1 <= B <= {_MAX_BATCH} and n >= 1, "
                          f"got B={b}, n={n}")
@@ -214,11 +233,11 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               route: str = "direct") -> tuple[torch.Tensor, torch.Tensor]:
     """(o in q's dtype, lse (B, n) float32). On CUDA it launches
     ``csrc/spatial_attention.cu`` on the current stream and counts the
-    launch under ``route`` (one of ``ATTN_ROUTES``)."""
+    launch under ``route`` (one of ``KERNEL_ROUTES``)."""
     global ATTN_LAUNCHES
     _check(q, k, v)
-    if route not in ATTN_ROUTES:
-        raise ValueError(f"route must be one of {ATTN_ROUTES}, got {route!r}")
+    if route not in KERNEL_ROUTES:
+        raise ValueError(f"route must be one of {KERNEL_ROUTES}, got {route!r}")
     if q.device.type == "cpu":
         return _plain_forward(q, k, v)
     _check_cuda(q, k, v)
@@ -250,12 +269,13 @@ def _check_bwd(q, k, v, do, lse, di) -> None:
 
 def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) in the inputs' dtype, the same bits from run to run. On CUDA
-    it launches ``csrc/spatial_attention_dkv.cu``."""
+    it launches ``csrc/spatial_attention_dkv.cu`` (d_v up to
+    ``backward_width(d_qk)``)."""
     global ATTN_DKV_LAUNCHES
     _check_bwd(q, k, v, do, lse, di)
     if q.device.type == "cpu":
         return spatial_attention_dkv_reference(q, k, v, do, lse, di)
-    _check_cuda(q, k, v, do, lse, di)
+    _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
     b, n, dqk = q.shape
     dv = v.shape[2]
     dk, dv_out = torch.empty_like(k), torch.empty_like(v)
@@ -271,12 +291,13 @@ def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Ten
 
 def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
     """dq in the inputs' dtype, the same bits from run to run. On CUDA it
-    launches ``csrc/spatial_attention_dq.cu``."""
+    launches ``csrc/spatial_attention_dq.cu`` (d_v up to
+    ``backward_width(d_qk)``)."""
     global ATTN_DQ_LAUNCHES
     _check_bwd(q, k, v, do, lse, di)
     if q.device.type == "cpu":
         return spatial_attention_dq_reference(q, k, v, do, lse, di)
-    _check_cuda(q, k, v, do, lse, di)
+    _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
     b, n, dqk = q.shape
     dq = torch.empty_like(q)
     fn = _dq_fn()
@@ -295,11 +316,15 @@ def _round8(d: int) -> int:
 
 def attention_route(d_qk: int, d_v: int) -> tuple[str, int, int, int]:
     """(route, d_qk padded, chunk width, chunks) for the kernels: d_qk and
-    the chunk width are multiples of 8, the chunks cover d_v (zero columns
-    past it), at most ``_MAX_DV`` wide each."""
+    the chunk width are multiples of 8, d_qk past 64 padded to 128, the
+    chunks cover d_v (zero columns past it), at most ``_MAX_DV`` wide each.
+    Past d_qk 128: ("einsum", d_qk, d_v, 1), the JAX package's einsum core,
+    which no kernel runs."""
+    if d_qk > _MAX_DQK:
+        return "einsum", d_qk, d_v, 1
     chunks = -(-d_v // _MAX_DV)
     width = _round8(-(-d_v // chunks))
-    dqk = _round8(d_qk)
+    dqk = _round8(d_qk) if d_qk <= 64 else _MAX_DQK
     if chunks > 1:
         route = "split"
     elif (dqk, width) != (d_qk, d_v):
@@ -313,7 +338,9 @@ class _SpatialAttention(torch.autograd.Function):
     """The core with its hand-written backward (the library's custom VJP),
     on v cut into column chunks of ``width`` (one chunk but on the split
     route; each chunk's forward launch counted under ``route``): the
-    cotangent is cast to q's dtype, each chunk's ``di`` is the
+    cotangent is cast to q's dtype; each forward chunk is cut again into
+    the backward kernels' chunks of at most ``backward_width(d_qk)``
+    columns, with the chunk's ``lse``; each backward chunk's ``di`` is the
     float32 product of its cotangent with its saved output; dK and dQ of
     several chunks are summed in float32 and cast once. Double backward is
     refused."""
@@ -333,18 +360,21 @@ class _SpatialAttention(torch.autograd.Function):
         n = len(rest) // 3
         chunks, outs, lses = rest[:n], rest[n:2 * n], rest[2 * n:]
         do = do.to(q.dtype)
+        bw = backward_width(q.shape[2])
         dq = dk = None
         dvs = []
         for c, o, lse, do_c in zip(chunks, outs, lses, do.split(ctx.width, dim=2)):
-            do_c = do_c.contiguous()
-            di = (o.float() * do_c.float()).sum(-1)
-            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-                dk_c, dv_c = spatial_attention_dkv(q, k, c, do_c, lse, di)
-                dk = dk_c if dk is None else dk.float() + dk_c.float()
-                dvs.append(dv_c)
-            if ctx.needs_input_grad[0]:
-                dq_c = spatial_attention_dq(q, k, c, do_c, lse, di)
-                dq = dq_c if dq is None else dq.float() + dq_c.float()
+            for c_b, o_b, do_b in zip(c.split(bw, dim=2), o.split(bw, dim=2),
+                                      do_c.split(bw, dim=2)):
+                c_b, do_b = c_b.contiguous(), do_b.contiguous()
+                di = (o_b.float() * do_b.float()).sum(-1)
+                if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+                    dk_c, dv_c = spatial_attention_dkv(q, k, c_b, do_b, lse, di)
+                    dk = dk_c if dk is None else dk.float() + dk_c.float()
+                    dvs.append(dv_c)
+                if ctx.needs_input_grad[0]:
+                    dq_c = spatial_attention_dq(q, k, c_b, do_b, lse, di)
+                    dq = dq_c if dq is None else dq.float() + dq_c.float()
         dv = (dvs[0] if len(dvs) == 1 else torch.cat(dvs, dim=2)) if dvs else None
         cast = lambda t: None if t is None else t.to(q.dtype)  # noqa: E731
         return cast(dq), cast(dk), dv, None, None
@@ -356,10 +386,15 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     q's dtype. The route (``attention_route``) follows from d_qk and d_v
     alone. On CUDA the forward and backward launch the Hopper kernels on
     the current stream without synchronising, and each forward launch is
-    counted under its route; on the CPU they are the plain versions."""
+    counted under its route; on the CPU they are the plain versions. d_qk
+    past 128 (the ``einsum`` route) raises: ``models/attention.py`` runs the
+    einsum core there."""
     _check(q, k, v)
     d_qk, d_v = q.shape[2], v.shape[2]
     route, dqk, width, chunks = attention_route(d_qk, d_v)
+    if route == "einsum":
+        raise ValueError(f"d_qk {d_qk} is past the kernels' {_MAX_DQK}: the JAX package runs "
+                         "its einsum core there (models/attention.py::einsum_attention)")
     if dqk != d_qk:
         q, k = F.pad(q, (0, dqk - d_qk)), F.pad(k, (0, dqk - d_qk))
     if width * chunks != d_v:

@@ -22,7 +22,8 @@ torch.profiler. Variants that drop work ("noload", "nomma", "nostore") no
 longer compute dQ: they split the time of the one they come from.
 "do_smem" is the fallback design: do stays in shared memory and is read by
 the wgmma as an operand (dp on wgmma.m64n128k16 from shared memory), with
-128-key tiles in a ring of two (d_qk 64 refused: two stages do not fit).
+128-key tiles in a ring of two (d_qk 64 and 128 refused: two stages do not fit
+at 64, and the 128 instance is not probed).
 "noturns" lets the two
 consumers start their products whenever they are ready, in place of taking
 turns. Needs a GPU; prints one line per variant.
@@ -65,21 +66,24 @@ EDITS = {
     "base": [],
     # the producer arrives without loading the key ring: its full barriers
     # complete at once (q and do are still loaded once)
-    "noload": [("        mbar_expect_tx(full + 8 * s, BKW * L::RB + boxes * V_BOX);\n"
-                "        tma_load(base + L::K + s * BKW * L::RB, &tk, 0, j * BKW, b, full + 8 * s);\n"
+    "noload": [("        mbar_expect_tx(full + 8 * s, L::K_TILE + boxes * V_BOX);\n"
+                "        for (int c = 0; c < L::NBOX; ++c)\n"
+                "          tma_load(base + L::K + s * L::K_TILE + c * L::K_BOX, &tk, c * L::BOXC, "
+                "j * BKW, b,\n"
+                "                   full + 8 * s);\n"
                 "        for (int c = 0; c < boxes; ++c)\n"
-                "          tma_load(base + L::V + s * V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, "
+                "          tma_load(base + L::V + s * L::V_TILE + c * V_BOX, &tv, 64 * c, j * BKW, b, "
                 "full + 8 * s);\n",
                 "        mbar_arrive(full + 8 * s);\n")],
     # no wgmma: each product becomes one register add that keeps its inputs live
-    "nomma": [("wgmma_ss(s, make_desc(q_rows + kk * 32, 16, 8 * L::RB, L::MODE), "
-               "make_desc(k_tile + kk * 32, 16, 8 * L::RB, L::MODE), kk);",
-               "s[kk] += (float)k_tile;"),
+    "nomma": [("wgmma_ss(s, make_desc(q_rows + box * L::Q_BOX + col, 16, 8 * L::RB, L::MODE), "
+               "make_desc(k_tile + box * L::K_BOX + col, 16, 8 * L::RB, L::MODE), kk);",
+               "s[kk] += (float)(k_tile + col);"),
               ("wgmma_rs_kmajor(dp, do_a[4 * c + kk], "
                "make_desc(v_tile + c * V_BOX + kk * 32, 16, 1024, 1), c | kk);",
                "dp[kk] += __uint_as_float(do_a[4 * c + kk][0]) + (float)v_tile;"),
               ("wgmma_rs(dq_acc, da[kk], "
-               "make_desc(k_tile + kk * 16 * L::RB, BKW * L::RB, 8 * L::RB, L::MODE));",
+               "make_desc(k_tile + kk * 16 * L::RB, L::K_BOX, 8 * L::RB, L::MODE));",
                "dq_acc[kk] += __uint_as_float(da[kk][0]);")],
     # no dq stores (kept behind a test the accumulator practically never passes)
     "nostore": [("    if (row >= n) continue;\n    bf16* qrow",
@@ -89,19 +93,22 @@ EDITS = {
                  "constexpr int BKW = 128;      // keys per tile"),
                 ("static constexpr int STAGES = DQK == 64 ? 3 : 4;",
                  "static constexpr int STAGES = 2;"),
-                # two stages of 128 keys do not fit at d_qk 64: refused there
-                ("    return launch_wgmma<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);",
+                # two stages of 128 keys do not fit at d_qk 64: refused there,
+                # and at d_qk 128 (not probed)
+                ("    if (dqk <= 64) return launch_wgmma<64>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);\n"
+                 "    return launch_wgmma<128>(q, k, v, dout, l, d, dq, B, n, dqk, dv, st);",
                  "    return static_cast<int>(cudaErrorNotSupported);"),
                 (EXP2, _wgmma_ss_n128() + EXP2),
                 ("if (c < boxes) ldsm_x4(", "if (c < 0) ldsm_x4("),
-                ("const uint32_t (&do_a)[16][4], uint32_t q_rows,",
-                 "const uint32_t (&do_a)[16][4], uint32_t do_rows, uint32_t q_rows,"),
+                ("const uint32_t (&do_a)[4 * Layout<DQK>::DVB][4], uint32_t q_rows,",
+                 "const uint32_t (&do_a)[4 * Layout<DQK>::DVB][4], uint32_t do_rows, "
+                 "uint32_t q_rows,"),
                 ("mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K, base + L::V, boxes);",
                  "mma_s_dp<DQK>(s, dp, do_a, base + L::DO + cw * 64 * 128, q_rows, base + L::K, "
                  "base + L::V, boxes);"),
-                ("mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K + stage1 * BKW * L::RB,",
+                ("mma_s_dp<DQK>(s, dp, do_a, q_rows, base + L::K + stage1 * L::K_TILE,",
                  "mma_s_dp<DQK>(s, dp, do_a, base + L::DO + cw * 64 * 128, q_rows, "
-                 "base + L::K + stage1 * BKW * L::RB,"),
+                 "base + L::K + stage1 * L::K_TILE,"),
                 ("wgmma_rs_kmajor(dp, do_a[4 * c + kk], make_desc(v_tile",
                  "wgmma_ss(dp, make_desc(do_rows + c * DO_BOX + kk * 32, 16, 1024, 1), "
                  "make_desc(v_tile")],
@@ -111,7 +118,9 @@ EDITS = {
 }
 DEFAULT = ["base", "noload", "nomma", "nostore", "do_smem", "noturns", "do_smem+noturns"]
 KERNELS = {"main": "attn_dq_wgmma"}
-CASES = [shape for shape, dtype in cs.ATTN_CASES if dtype == torch.bfloat16]
+# the smoke's bf16 cases that the backward kernels take whole
+CASES = [shape for shape, dtype in cs.ATTN_CASES
+         if dtype == torch.bfloat16 and shape[3] <= sa.backward_width(shape[2])]
 
 
 def variant_source(src: str, variant: str) -> str:
@@ -177,7 +186,7 @@ def correct(gen, verbose: bool) -> tuple[bool, float, int]:
         try:
             dq, dq2 = (sa.spatial_attention_dq(q, k, v, do, lse, di) for _ in range(2))
             torch.cuda.synchronize()
-        except RuntimeError:   # a launch the variant refuses (do_smem at d_qk 64)
+        except RuntimeError:   # a launch the variant refuses (do_smem at d_qk 64 and 128)
             refused += 1
             continue
         (dq_c,) = cs.per_image(contract, q, k, v, do, lse, di)

@@ -25,6 +25,7 @@ from gan_variant_research_tpu_torch.models.attention import (
     ChannelAttention,
     SelfAttention2d,
     StyleGate,
+    einsum_attention,
 )
 from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
 from gan_variant_research_tpu_torch.train.cut_trainer import build_generator
@@ -333,14 +334,34 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     (4, 36, ("padded", 8, 40, 1)), (1, 1, ("padded", 8, 8, 1)),
     (48, 384, ("split", 48, 192, 2)), (20, 384, ("split", 24, 192, 2)),
     (8, 257, ("split", 8, 136, 2)), (16, 512, ("split", 16, 256, 2)),
-    (64, 1000, ("split", 64, 256, 4)), (72, 32, ("direct", 72, 32, 1))])
+    (64, 1000, ("split", 64, 256, 4)), (72, 32, ("padded", 128, 32, 1)),
+    (80, 640, ("split", 128, 216, 3)), (128, 256, ("direct", 128, 256, 1)),
+    (128, 1024, ("split", 128, 256, 4)), (72, 576, ("split", 128, 192, 3)),
+    (136, 1088, ("einsum", 136, 1088, 1)), (160, 1280, ("einsum", 160, 1280, 1))])
 def test_attention_route_is_picked_by_shape(d_qk, d_v, want):
-    """d_qk and the chunk width in multiples of 8 (at least 8), chunks of at
-    most 256 covering d_v; d_qk past 64 is left for the kernels to refuse."""
+    """d_qk and the chunk width in multiples of 8 (at least 8), d_qk past 64
+    padded to the kernels' 128 instance (as the JAX flash path pads to its
+    128-wide head), chunks of at most 256 covering d_v; past d_qk 128 the
+    JAX package's einsum core, which takes d_v whole."""
     assert sa.attention_route(d_qk, d_v) == want
     route, dqk, width, chunks = want
+    if route == "einsum":
+        assert (dqk, width, chunks) == (d_qk, d_v, 1)
+        return
+    assert dqk in (*range(8, 65, 8), 128)
     assert width % 8 == 0 and width <= 256 and width * chunks >= d_v
     assert width * (chunks - 1) < d_v
+
+
+@pytest.mark.parametrize("d_qk, want", [(8, 256), (64, 256), (128, 128)])
+def test_backward_width_is_the_instances(d_qk, want):
+    """The backward kernels take d_v up to 256 on the d_qk 16/32/64
+    instances and up to 128 on the 128 one; the wrappers refuse wider."""
+    assert sa.backward_width(d_qk) == want
+    q = torch.zeros(1, 64, d_qk)
+    sa._check_cuda(q, q, torch.zeros(1, 64, want), max_dv=sa.backward_width(d_qk))
+    with pytest.raises(ValueError, match="d_v"):
+        sa._check_cuda(q, q, torch.zeros(1, 64, want + 8), max_dv=sa.backward_width(d_qk))
 
 
 @pytest.mark.parametrize("shape", [(2, 50, 4, 36), (2, 33, 20, 384), (1, 40, 4, 384),
@@ -401,12 +422,16 @@ def test_split_route_takes_each_chunks_own_di():
     assert _rel_to_max(dk.numpy(), want_k.numpy()) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(1, 512, 48, 384), (1, 512, 20, 256)])
+@pytest.mark.parametrize("shape", [(1, 512, 48, 384), (1, 512, 20, 256), (1, 1024, 128, 256),
+                                   (1, 1024, 80, 640)])
 def test_routed_core_matches_jax_flash_kernel_in_interpret_mode(shape):
     """The split route at the ngf-96 variant's widths (d_qk 48, d_v 384 in
-    2 x 192) and the padded route at d_qk 20 against the Pallas flash kernel
-    (interpret mode) that the JAX variant runs there, float32, forward and
-    gradients, to the unrouted core's tolerances."""
+    2 x 192), the padded route at d_qk 20, the d_qk-128 instance direct at
+    the ngf-256 variant's d_qk (d_v 256, its backward in 2 x 128) and at
+    the ngf-160 variant's widths (d_qk 80 padded to 128, d_v 640 split in
+    3 x 216, each chunk's backward in 128 + 88) against the Pallas flash
+    kernel (interpret mode) that the JAX variant runs there, float32,
+    forward and gradients, to the unrouted core's tolerances."""
     import jax.experimental.pallas.tpu as pltpu
 
     q, k, v, g = _qkv(shape, seed=7)
@@ -462,14 +487,67 @@ def test_each_forward_launch_is_counted_under_the_callers_route(monkeypatch, sha
     assert seen == [(route, (shape[0], shape[1], dqk), (shape[0], shape[1], width))] * chunks
 
 
-def test_forward_wrapper_refuses_an_unknown_route():
+@pytest.mark.parametrize("route", ["plain", "einsum"])
+def test_forward_wrapper_refuses_an_unknown_route(route):
+    """Only the kernels' routes: the einsum core launches no kernel."""
     q = torch.zeros(1, 16, 8)
     with pytest.raises(ValueError, match="route"):
-        sa.spatial_attention_forward(q, q, q, route="plain")
+        sa.spatial_attention_forward(q, q, q, route=route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_einsum_route_matches_jax_einsum_core(dtype):
+    """d_qk 160 (the ngf-320 variant's d_qk, d_v 1280): the JAX package runs
+    its einsum core there, and so does the port (``einsum_attention``).
+    float32: forward to 1e-6 + 1e-5 relative, gradients to 1e-5 of their
+    largest value (sums in another order); bf16: the same rounding points,
+    the forward within one bf16 rounding of each value, or of 1e-6 of the
+    largest where a sum of 256 float32 terms cancels to near 0 and their
+    order moves it."""
+    shape = (1, 256, 160, 1280)
+    q, k, v, g = _qkv(shape, seed=12)
+    q, k = q * 0.25, k * 0.25
+    jd = JAX_DTYPES[dtype]
+    want, vjp = jax.vjp(_jax_einsum_core, *(jnp.asarray(a, jd) for a in (q, k, v)))
+    want = np.asarray(want.astype(jnp.float32))
+    before = dict(sa.ATTN_ROUTE_LAUNCHES)
+    got, got_grads = _port_grads(einsum_attention, q, k, v, g, dtype)
+    assert sa.ATTN_ROUTE_LAUNCHES == before   # counted on the card only
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+        for name, a, b in zip("qkv", got_grads, vjp(jnp.asarray(g))):
+            assert _rel_to_max(a, np.asarray(b)) <= 1e-5, name
+    else:
+        tol = np.maximum(_bf16_ulp(want), 1e-6 * np.abs(want).max())
+        assert (np.abs(got - want) <= tol).all()
+
+
+def test_kernel_core_refuses_the_einsum_route():
+    q = torch.zeros(1, 16, 160)
+    with pytest.raises(ValueError, match="einsum"):
+        sa.spatial_attention(q, q, torch.zeros(1, 16, 32))
+
+
+@pytest.mark.parametrize("channels, core", [(1024, "kernels"), (1280, "einsum")])
+def test_self_attention_picks_its_core_by_d_qk(monkeypatch, channels, core):
+    """d_qk = C / 8 up to 128 takes the kernels' core, past it the einsum
+    core, on the CPU as on the card."""
+    seen = []
+    monkeypatch.setattr(sa, "spatial_attention",
+                        lambda q, k, v: seen.append("kernels") or einsum_attention(q, k, v))
+    import gan_variant_research_tpu_torch.models.attention as attention
+
+    real = attention.einsum_attention
+    monkeypatch.setattr(attention, "einsum_attention",
+                        lambda q, k, v: seen.append("einsum") or real(q, k, v))
+    mod = SelfAttention2d(channels, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        mod(torch.zeros(1, 2, 2, channels))
+    assert seen == [core]
 
 
 @pytest.mark.parametrize("shape, message", [
-    ((1, 64, 4, 32), "d_qk"), ((1, 64, 72, 32), "d_qk"), ((1, 64, 12, 32), "d_qk"),
+    ((1, 64, 4, 32), "d_qk"), ((1, 64, 136, 32), "d_qk"), ((1, 64, 12, 32), "d_qk"),
     ((1, 64, 8, 264), "d_v"), ((1, 64, 8, 20), "d_v")])
 def test_kernel_limits_are_checked_before_a_launch(shape, message):
     b, n, dqk, dv = shape

@@ -81,6 +81,31 @@ def test_train_slice_module_imports_without_jax(module):
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+EVAL_SLICE_MODULES = ("convert", "evalsuite", "evalsuite.inception", "evalsuite.utils",
+                      "evalsuite.datasets", "evalsuite.frechet", "evalsuite.features",
+                      "evalsuite.mifid", "evalsuite.kid", "evalsuite.prd", "evalsuite.report",
+                      "evalsuite.cli")
+
+
+@pytest.mark.parametrize("module", EVAL_SLICE_MODULES)
+def test_eval_slice_module_imports_without_jax(module):
+    """Each module of the eval slice, alone in a fresh interpreter, loads no
+    jax, flax, optax, JAX-package, yaml, msgpack or matplotlib module (the
+    pure-numpy metrics are the port's own copies)."""
+    name = f"{PKG}.{module}"
+    assert name in _modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({name!r})\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        f"      if m.split('.')[0] in {BANNED_MODULES!r})))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax():
     banned = ("import jax", "from jax", "import flax", "from flax", "import optax",
               "from optax", "from gan_variant_research_tpu.",
@@ -122,6 +147,13 @@ def test_train_console_script_resolves(pyproject):
     target = pyproject["project"]["scripts"]["gvr-torch-train-cutpp"]
     mod_name, _, attr = target.partition(":")
     assert mod_name == f"{PKG}.cli.train_cutpp"
+    assert callable(getattr(importlib.import_module(mod_name), attr))
+
+
+def test_eval_console_script_resolves(pyproject):
+    target = pyproject["project"]["scripts"]["gvr-torch-eval"]
+    mod_name, _, attr = target.partition(":")
+    assert mod_name == f"{PKG}.evalsuite.cli"
     assert callable(getattr(importlib.import_module(mod_name), attr))
 
 
