@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serving and training,
-the flagship generator and the variant one, and MiFID/FID evaluation.
+the flagship generator and the variant one, MiFID/FID evaluation, and
+CycleGAN training and serving.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,8 @@ Phases, one line each:
 3. kernels  - each kernel against its plain PyTorch version on the card
               (TF32 off): the trunk conv, its input grad (dx) and its
               weight grad (dw), at the trunk shapes in float32 and bf16
-              (also at the 512^2 trunk's (2, 128, 128, 256)) and at ragged
+              (also at the 512^2 trunk's (2, 128, 128, 256) and CycleGAN's
+              (1|3|48, 64, 64, 256)) and at ragged
               shapes down to H, W of 2 and 3 (the forward and dw also at
               Cin 136 and 264, Cout 72 and 520, W 65 and 129), every
               forward, dx and dw route (float32 FMA, bf16 wgmma, channels
@@ -140,12 +142,34 @@ Phases, one line each:
               prints the extractor's images/s on the card, each stage's
               seconds and the decode thread's share of the wall time.
 
+11. cyclegan - the trunk forward, dx and dw at (1, 64, 64, 256) and (48,
+              64, 64, 256) bf16 beside their plain versions, cuDNN and their
+              bounds; one float32 CycleGAN step at batch 1 (the port's
+              configs/baseline.yaml: bias-free ResNet-9 ngf 64, PatchGAN ndf
+              64 with instance norm, 256^2 crops of 286^2, LSGAN) through the
+              kernels and through the plain versions from one state and one
+              set of draws: losses to 1e-4, Adam's mu per leaf to 1e-3 of the
+              leaf's max; 1 + 10 bf16 steps at baseline.yaml (batch 1) and
+              baseline_tpu.yaml (batch 16), each launching 54/54/54 trunk
+              kernels on their bf16 wgmma routes, and of the U-Net option
+              (batch 1, no trunk launch): losses finite, all four nets moved,
+              ms a step, peak memory, one profiled step's device busy time and
+              idle share; cli/train_cyclegan.main on seeded folders of 48 A
+              and 32 B 300^2 JPEGs (batch 4, 12 steps an epoch, a checkpoint
+              every 2 epochs, 48 steps), then --resume auto to 72: the
+              checkpoint names, the restored state bitwise the saved one,
+              54/54/54 launches on every step, one log line an epoch, steps/s
+              and the loader's wait share; cli/generate_folder.main on the last
+              checkpoint in both directions over 32 photos (uint8 JPEGs of
+              256^2 and the zip), and stylize_batch at batch 32 timed.
+
 Any failure raises and exits non-zero. The second-to-last line is the
 kernel table as JSON (each row's times and bound at the shape its
 `launches` run at: the trunk forward's at the train step's batch 12, with
 its batch-32 served time, bound and cuDNN time beside them; the attention
 rows also carry the d_qk-128 instance's launches and times under
-``dqk128_*``); the last line is
+``dqk128_*``, and SDPA's backward at d_v 256 beside the port's; the trunk
+rows CycleGAN's launches and times under ``cyclegan_*``); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -154,6 +178,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import subprocess
@@ -172,6 +197,8 @@ SERVE_BATCH, SERVE_BATCHES, TIME_BATCH = 8, 3, 32
 FLAGSHIP = {"ngf": 64, "n_blocks": 9, "n_downsampling": 2}
 TRUNK_CONVS = 2 * FLAGSHIP["n_blocks"]
 TRAIN_STEPS = 4
+CYCLEGAN_BATCHES = (1, 3, 48)          # trunk batches of CycleGAN's G passes
+CYCLEGAN_SHAPES = tuple((n, 64, 64, 256) for n in CYCLEGAN_BATCHES)
 
 # The keys of gan_variant_research_tpu/configs/train_gan_cutpp.yaml that the
 # train step reads (core/config.py::STEP_KEYS); tests/test_torch_cut_parts.py
@@ -406,8 +433,15 @@ def phase_kernels(gen) -> dict:
              ((2, 2, 2, 16), 24, torch.bfloat16), ((1, 3, 2, 8), 8, torch.bfloat16),
              ((2, 2, 3, 13), 21, torch.float32), ((2, 2, 3, 13), 21, torch.bfloat16),
              ((1, 3, 3, 8), 16, torch.bfloat16)]
+    # the CycleGAN trunks: batch 1 and 3 (baseline.yaml's passes) and 48
+    # (baseline_tpu.yaml's largest), on a generator of their own, so that
+    # every other case here and in the phases after keeps its inputs
+    cases += [((n, 64, 64, 256), 256, dtype) for n in CYCLEGAN_BATCHES
+              for dtype in (torch.float32, torch.bfloat16)]
+    cg_gen = torch.Generator(device="cuda").manual_seed(13)
+    case_gen = lambda shape: cg_gen if shape in CYCLEGAN_SHAPES else gen  # noqa: E731
     for shape, c_out, dtype in cases:
-        x, w, b = conv_inputs(shape, c_out, dtype, gen)
+        x, w, b = conv_inputs(shape, c_out, dtype, case_gen(shape))
         route = resblock.fwd_route(shape, c_out, dtype)
         before = dict(resblock.FWD_ROUTE_LAUNCHES)
         y = resblock.reflect_conv3x3(x, w, b)
@@ -449,9 +483,12 @@ def phase_kernels(gen) -> dict:
                   ((2, 2, 3, 13), 21, torch.float32), ((2, 2, 3, 13), 21, torch.bfloat16),
                   ((1, 3, 2, 8), 8, torch.float32), ((1, 3, 2, 8), 8, torch.bfloat16),
                   ((2, 2, 2, 16), 24, torch.bfloat16)]
+    grad_cases += [((n, 64, 64, 256), 256, dtype) for n in CYCLEGAN_BATCHES
+                   for dtype in (torch.float32, torch.bfloat16)]
     for shape, c_out, dtype in grad_cases:
-        x, w, _ = conv_inputs(shape, c_out, dtype, gen)
-        dy = torch.randn(shape[:3] + (c_out,), device="cuda", generator=gen).to(dtype)
+        x, w, _ = conv_inputs(shape, c_out, dtype, case_gen(shape))
+        dy = torch.randn(shape[:3] + (c_out,), device="cuda",
+                         generator=case_gen(shape)).to(dtype)
         route = resblock.dx_route(dy.shape, shape[3], dtype)
         dw_route = resblock.dw_route(shape, c_out, dtype)
         label = dict(shape="x".join(map(str, shape)), c_out=c_out, dtype=str(dtype).split(".")[-1])
@@ -672,9 +709,10 @@ def kernel_device_us(fn, iters: int, names: dict) -> dict:
     return got
 
 
-def profile_once(fn, op: str, rows: int, **fields) -> None:
+def profile_once(fn, op: str, rows: int, **fields) -> dict:
     """One torch.profiler op table of one call of ``fn`` (after a warm
-    call), its device busy time and the card's idle share."""
+    call), its device busy time and the card's idle share; returns the
+    wall, the busy time and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -689,8 +727,10 @@ def profile_once(fn, op: str, rows: int, **fields) -> None:
     sort_by = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
                else "self_cuda_time_total")
     print(events.table(sort_by=sort_by, row_limit=rows), flush=True)
+    idle = max(0.0, 1 - busy / wall)
     phase("timing", op=op, **fields, wall_ms=f"{wall:.2f}", device_busy_ms=f"{busy:.2f}",
-          idle_share=f"{max(0.0, 1 - busy / wall):.4f}")
+          idle_share=f"{idle:.4f}")
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy, "idle_share": idle}
 
 
 def phase_timing(gen, rng, net, trainer, state, batches):
@@ -1712,18 +1752,29 @@ def dqk128_timing(gen) -> dict:
                      "plain_ms": event_ms(plain, iters=3), "bound_ms": bound[0],
                      "bound_by": bound[1]}
     # SDPA: the forward at d_v 256; its backward (dK, dV and dQ in one call)
-    # at the backward kernels' chunk
+    # at the backward kernels' chunk, and at d_v 256 beside the port's whole
+    # backward there (two chunk pairs through the autograd.Function)
     leaves = [t.detach().requires_grad_() for t in (q, k, vb)]
     o_l = sdpa(*leaves)
     out["fwd"]["library_ms"] = event_ms(lambda: sdpa(q, k, v), iters=10)
     bwd_lib = event_ms(lambda: torch.autograd.grad(o_l, leaves, dob, retain_graph=True),
                        iters=10)
     out["dkv"]["library_ms"] = out["dq"]["library_ms"] = bwd_lib
+    leaves256 = [t.detach().requires_grad_() for t in (q, k, v)]
+    o256 = sdpa(*leaves256)
+    bwd_lib256 = event_ms(lambda: torch.autograd.grad(o256, leaves256, do, retain_graph=True),
+                          iters=10)
+    o_port = sa.spatial_attention(*leaves256)
+    bwd_port256 = event_ms(lambda: torch.autograd.grad(o_port, leaves256, do,
+                                                       retain_graph=True), iters=10)
+    for kind in ("dkv", "dq"):
+        out[kind]["library_dv256_ms"] = bwd_lib256
+        out[kind]["port_backward_dv256_ms"] = bwd_port256
     phase("timing", op="spatial_attention_dqk128", dtype="bf16",
           **{f"{kind}_{key}": (f"{val:.4f}" if isinstance(val, float) else
                                "x".join(map(str, val)) if isinstance(val, list) else val)
              for kind, row in out.items() for key, val in row.items()})
-    del q, k, v, do, o, lse, vb, dob, ob, di, leaves, o_l
+    del q, k, v, do, o, lse, vb, dob, ob, di, leaves, o_l, leaves256, o256, o_port
     torch.cuda.empty_cache()
     return out
 
@@ -1751,24 +1802,24 @@ def write_image_folder(folder: Path, count: int, rng: np.random.Generator) -> No
 
 
 def states_equal(a, b) -> list[str]:
-    """The names of the train-state parts where ``a`` and ``b`` differ in
-    any bit."""
+    """The names of the fields of two train states (CUT's or CycleGAN's)
+    where ``a`` and ``b`` differ in any bit."""
+    from gan_variant_research_tpu_torch.train.optim import AdamState
+
     diff = []
-    for part in ("g_params", "d_params", "ema"):
-        if any(not torch.equal(getattr(a, part)[n], getattr(b, part)[n])
-               for n in getattr(a, part)):
-            diff.append(part)
-    for part in ("opt_g", "opt_d"):
-        x, y = getattr(a, part), getattr(b, part)
-        if x.count != y.count or any(not torch.equal(x.mu[n], y.mu[n]) or
-                                     not torch.equal(x.nu[n], y.nu[n]) for n in x.mu):
-            diff.append(part)
-    if a.step != b.step:
-        diff.append("step")
-    if not np.array_equal(a.base_key, b.base_key):
-        diff.append("base_key")
-    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
-        diff.append("rng")
+    for field in dataclasses.fields(a):
+        x, y = getattr(a, field.name), getattr(b, field.name)
+        if isinstance(x, dict):
+            same = all(torch.equal(x[n], y[n]) for n in x)
+        elif isinstance(x, AdamState):
+            same = x.count == y.count and all(
+                torch.equal(x.mu[n], y.mu[n]) and torch.equal(x.nu[n], y.nu[n]) for n in x.mu)
+        elif isinstance(x, torch.Generator):
+            same = torch.equal(x.get_state(), y.get_state())
+        else:
+            same = bool(np.array_equal(x, y))
+        if not same:
+            diff.append(field.name)
     return diff
 
 
@@ -1911,19 +1962,19 @@ EVAL_RUN_KEYS = {"name", "timestamp_utc", "fake_dir", "real_mode", "real_dir_or_
 EVAL_CSV_HEADER = ["rank", "fake_path", "distance", "cosine_similarity", "nearest_real_path"]
 
 
-def write_jpeg_folder(folder: Path, count: int, seed: int) -> None:
-    """``count`` 256x256 JPEGs, each from its own numpy seed (smooth colour
-    fields with noise), written from a pool of 8 threads."""
+def write_jpeg_folder(folder: Path, count: int, seed: int, size: int = 256) -> None:
+    """``count`` size x size JPEGs, each from its own numpy seed (smooth
+    colour fields with noise), written from a pool of 8 threads."""
     from PIL import Image
 
     folder.mkdir(parents=True)
-    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 255.0
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
 
     def one(i):
         rng = np.random.default_rng((seed, i))
         a = rng.uniform(0, 1, (3, 3))
         img = np.stack([a[c, 0] * yy + a[c, 1] * xx + a[c, 2] for c in range(3)], -1)
-        img = img / img.max() * 200 + rng.normal(0, 12, (256, 256, 3))
+        img = img / img.max() * 200 + rng.normal(0, 12, (size, size, 3))
         Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(folder / f"{i:05d}.jpg",
                                                                      quality=90)
 
@@ -2075,6 +2126,361 @@ def phase_eval() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# CycleGAN: the trunk kernels at its batches, its step, a run and serving
+
+CYCLEGAN_CONFIGS = REPO / "gan_variant_research_tpu_torch" / "configs"
+CYCLEGAN_TIMED_STEPS = 10
+CG_RUN_A, CG_RUN_B, CG_RUN_SIZE = 48, 32, 300
+CG_RUN_BATCH, CG_RUN_STEPS, CG_RUN_MORE, CG_RUN_SAVE_EVERY = 4, 48, 24, 2
+CG_SERVE_PHOTOS = 32
+
+
+def cyclegan_config(name: str, **model) -> dict:
+    """The port's copy of a shipped CycleGAN config (read with the port's own
+    YAML reader), ``model`` keys overridden."""
+    from gan_variant_research_tpu_torch.core.config import load_config
+
+    cfg = load_config(CYCLEGAN_CONFIGS / name)
+    cfg["model"].update(model)
+    return cfg
+
+
+def cyclegan_batches(rng, cfg, n):
+    b, load = cfg["training"]["batch_size"], cfg["data"]["load_size"]
+    return [tuple(torch.from_numpy(rng.integers(0, 256, (b, load, load, 3), dtype=np.uint8))
+                  .cuda() for _ in range(2)) for _ in range(n)]
+
+
+def cyclegan_fp32_vs_plain(cfg) -> tuple[float, dict]:
+    """One float32 step of ``cfg`` at batch 1 on the kernel path and on the
+    plain path, from one seeded state and one set of draws, under
+    ``cudnn.deterministic``. Returns (the losses' largest relative
+    difference, Adam mu's difference per leaf over the leaf's largest
+    value)."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["runtime"]["precision"] = "fp32"
+    cfg32["training"]["batch_size"] = 1
+    trainer = CycleGANTrainer(cfg32, steps_per_epoch=1)
+    (a, b), = cyclegan_batches(np.random.default_rng(21), cfg32, 1)
+    draws = trainer.sample_draws(torch.Generator(device="cuda").manual_seed(1), a.shape)
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    for path in ("kernel", "plain"):
+        state = trainer.init_state(device="cuda")
+        with contextlib.ExitStack() as stack:
+            if path == "plain":
+                stack.enter_context(plain_path(resblock, sa))
+            state, losses = trainer.train_step(state, a, b, draws=draws)
+        results[path] = (state, {k: float(v) for k, v in losses.items()})
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    lk, lp = results["kernel"][1], results["plain"][1]
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-6) for k in lk)
+    rels = {}
+    for opt in ("opt_g", "opt_da", "opt_db"):
+        mk, mp = getattr(results["kernel"][0], opt).mu, getattr(results["plain"][0], opt).mu
+        for n in mp:
+            rels[f"{opt}:{n}"] = (float((mk[n] - mp[n]).abs().max())
+                                  / max(float(mp[n].abs().max()), 1e-30))
+    return loss_rel, rels
+
+
+def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
+    """A warmup step and CYCLEGAN_TIMED_STEPS bf16 steps of ``cfg`` from a
+    seeded state on seeded uint8 batches: every step's trunk launches (54
+    forwards, 54 dx, 54 dw, each on its bf16 wgmma route, or none without a
+    ResNet), finite losses, all four nets moved; ms a step over the timed
+    steps run back to back (host clock ending in a synchronise), peak
+    memory, then one profiled step."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+
+    trainer = CycleGANTrainer(cfg, steps_per_epoch=1)
+    state = trainer.init_state(device="cuda")
+    start = {k: {n: t.detach().clone() for n, t in getattr(state, k).items()}
+             for k in ("g_params", "da_params", "db_params")}
+    batches = cyclegan_batches(rng, cfg, CYCLEGAN_TIMED_STEPS + 1)
+    want = (3 * TRUNK_CONVS,) * 3 if expect_trunk else (0, 0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(resblock)
+    losses_seen = []
+    for i, (a, b) in enumerate(batches):
+        if i == 1:   # the first step warms up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        before, routes = counts(resblock), route_counts(resblock)
+        state, losses = trainer.train_step(state, a, b)
+        step_counts = tuple(x - y for x, y in zip(counts(resblock), before))
+        check(step_counts == want, f"{name} step {i} launched {step_counts}, want {want}")
+        if expect_trunk:
+            check_routes(resblock, routes, dict.fromkeys(routes, want[0]), f"{name} step")
+        losses_seen.append(losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = counts(resblock)
+    for i, losses in enumerate(losses_seen):
+        vals = {k: float(v) for k, v in losses.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"{name} step {i}: losses {vals}")
+    last_losses = {k: float(v) for k, v in losses_seen[-1].items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: max(float((getattr(state, k)[n].detach() - t).abs().max())
+                    for n, t in start[k].items()) for k in start}
+    g_moved = {g: max(float((state.g_params[n].detach() - t).abs().max())
+                      for n, t in start["g_params"].items() if n.startswith(g))
+               for g in ("G_A2B", "G_B2A")}
+    check(all(v > 0 for v in (*moved.values(), *g_moved.values())),
+          f"{name}: parameters did not move: {moved} {g_moved}")
+    ms = wall / CYCLEGAN_TIMED_STEPS * 1e3
+    b = cfg["training"]["batch_size"]
+    phase("cyclegan", cell=name, generator=cfg["model"]["generator"], dtype="bf16", batch=b,
+          steps=f"1+{CYCLEGAN_TIMED_STEPS}", launches_fwd_dx_dw="/".join(map(str, launches)),
+          per_step="/".join(map(str, want)), step_ms=f"{ms:.2f}",
+          images_per_s=f"{b / ms * 1e3:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
+          **{f"{k}_max_move": f"{v:.3e}" for k, v in {**moved, **g_moved}.items()},
+          **{k: f"{v:.4f}" for k, v in last_losses.items()})
+    a, b_u8 = batches[-1]
+    busy = profile_once(lambda: trainer.train_step(state, a, b_u8), f"cyclegan_step_{name}",
+                        rows=15)
+    del trainer, state, batches, start
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gb": peak_gb, "launches": launches, **busy}
+
+
+def queued_us(fn, iters: int = 50) -> float:
+    """Device time in us of one call of ``fn``, whatever the host's launch
+    cost: ``iters`` calls are queued behind a spin kernel and timed on CUDA
+    events from its end, so the device runs them back to back. Checked:
+    the spin is still running when the last call is queued (else the
+    spin is lengthened and the timing taken again)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = iters * 400_000            # ~200 us of spin a call at 2 GHz
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) * 1e3 / iters
+        cycles *= 4
+    raise RuntimeError("chip_smoke: the host did not queue the calls ahead of the device")
+
+
+def cyclegan_kernel_timing(gen) -> dict:
+    """The trunk forward, dx and dw at CycleGAN's (1, 64, 64, 256) and
+    (48, 64, 64, 256), bf16, on CUDA events: kernel, plain, kernel, plain,
+    then cuDNN's call (reflect pad + conv + bias; backward-data;
+    backward-weight), and each bound; the kernel's and cuDNN's calls also
+    queued ahead of the device (``queued_us``: at batch 1, events around
+    back-to-back calls time the host's launch cost)."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+
+    out = {}
+    for n in (CYCLEGAN_BATCHES[0], CYCLEGAN_BATCHES[-1]):
+        shape = (n, 64, 64, 256)
+        x, w, b = conv_inputs(shape, 256, torch.bfloat16, gen)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        w_oihw, dy_nchw = w.permute(3, 2, 0, 1).contiguous(), dy.permute(0, 3, 1, 2)
+        grad = lambda mask: (lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            dy_nchw, xp, w_oihw, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask))
+        ops = {"fwd": (lambda: resblock.reflect_conv3x3(x, w, b),
+                       lambda: resblock.reflect_conv3x3_reference(x, w, b),
+                       lambda: cudnn_conv(x, w, b)),
+               "dx": (lambda: resblock.reflect_conv3x3_dx(dy, w),
+                      lambda: resblock.reflect_conv3x3_dx_reference(dy, w),
+                      grad([True, False, False])),
+               "dw": (lambda: resblock.reflect_conv3x3_dw(x, dy),
+                      lambda: resblock.reflect_conv3x3_dw_reference(x, dy),
+                      grad([False, True, False]))}
+        flop = 2 * 9 * int(np.prod(shape)) * 256
+        act, w_bytes = int(np.prod(shape)) * 2, 9 * 256 * 256 * 2
+        nbytes = {"fwd": 2 * act + w_bytes + 256 * 4, "dx": 2 * act + w_bytes,
+                  "dw": 2 * act + 9 * 256 * 256 * 4}
+        iters = 20 if n == 1 else 10
+        for op, (kernel, plain, library) in ops.items():
+            k1 = event_ms(kernel, iters)
+            p1 = event_ms(plain, 3)
+            k2 = event_ms(kernel, iters)
+            p2 = event_ms(plain, 3)
+            lib = event_ms(library, iters)
+            bound = bound_ms(flop, nbytes[op], PEAK_BF16_FLOPS)
+            dev_us, lib_dev_us = queued_us(kernel), queued_us(library)
+            out[(op, n)] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                            "bound_ms": bound[0], "bound_by": bound[1],
+                            "device_ms": dev_us / 1e3, "library_device_ms": lib_dev_us / 1e3}
+            phase("timing", op=f"reflect_conv3x3_{op}" if op != "fwd" else "reflect_conv3x3",
+                  cell="cyclegan", shape="x".join(map(str, shape)), dtype="bf16",
+                  kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
+                  cudnn_bf16_ms=f"{lib:.4f}", bound_ms=f"{bound[0]:.4f}",
+                  kernel_vs_cudnn=f"{(k1 + k2) / 2 / lib:.3f}",
+                  kernel_device_us=f"{dev_us:.2f}", cudnn_device_us=f"{lib_dev_us:.2f}")
+        del x, w, b, dy, xp, w_oihw, dy_nchw
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cyclegan(gen) -> dict:
+    """The CycleGAN slice on the card: the trunk kernels timed at its
+    batches; the float32 step at batch 1 through the kernels against the
+    plain path; bf16 steps at baseline.yaml (batch 1) and baseline_tpu.yaml
+    (batch 16), and the U-Net at batch 1; a run through
+    ``cli/train_cyclegan.main`` from seeded JPEG folders, then ``--resume
+    auto``; serving its last checkpoint in both directions through
+    ``cli/generate_folder.main``."""
+    import shutil
+    import zipfile
+
+    from PIL import Image
+
+    from gan_variant_research_tpu_torch.cli import generate_folder as gf
+    from gan_variant_research_tpu_torch.cli import train_cyclegan as cli
+    from gan_variant_research_tpu_torch.data.loader import UnpairedLoader
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.train import checkpoint as ck
+    from gan_variant_research_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+
+    out = {"kernels": cyclegan_kernel_timing(gen)}
+    base, tpu = cyclegan_config("baseline.yaml"), cyclegan_config("baseline_tpu.yaml")
+
+    # 1. float32, batch 1: the kernels against the plain path
+    loss_rel, mu_rels = cyclegan_fp32_vs_plain(base)
+    worst = sorted(mu_rels, key=mu_rels.get, reverse=True)[:4]
+    phase("cyclegan", cell="fp32_vs_plain", batch=1, loss_max_rel=f"{loss_rel:.3e}",
+          adam_mu_max_rel_to_leaf_max=f"{mu_rels[worst[0]]:.3e}",
+          worst_leaves=",".join(f"{n}={mu_rels[n]:.2e}" for n in worst))
+    check(loss_rel <= 1e-4, f"CycleGAN fp32 step losses differ from the plain path by {loss_rel}")
+    check(mu_rels[worst[0]] <= 1e-3,
+          f"CycleGAN fp32 step Adam mu differs from the plain path by {mu_rels[worst[0]]}")
+
+    # 2., 3. bf16 steps: baseline.yaml, baseline_tpu.yaml, the U-Net option
+    rng = np.random.default_rng(23)
+    out["baseline"] = cyclegan_steps("baseline", base, rng, expect_trunk=True)
+    out["baseline_tpu"] = cyclegan_steps("baseline_tpu", tpu, rng, expect_trunk=True)
+    out["unet"] = cyclegan_steps("unet", cyclegan_config("baseline.yaml", generator="unet"), rng,
+                                 expect_trunk=False)
+
+    # 4. a run through the CLI, then --resume auto
+    root = REPO / "build" / "cyclegan_run"
+    shutil.rmtree(root, ignore_errors=True)
+    write_jpeg_folder(root / "photo_jpg", CG_RUN_A, 31, CG_RUN_SIZE)
+    write_jpeg_folder(root / "monet_jpg", CG_RUN_B, 32, CG_RUN_SIZE)
+    sets = [f"data.root={root}", "data.num_workers=8",
+            f"training.batch_size={CG_RUN_BATCH}", f"training.save_every={CG_RUN_SAVE_EVERY}",
+            f"training.save_dir={root / 'ckpt'}", f"training.log_dir={root / 'logs'}"]
+    step_launches, waits = [], []
+    real_step, real_next = CycleGANTrainer.train_step, UnpairedLoader.__next__
+
+    def counted_step(self, *a, **kw):
+        before = counts(resblock)
+        result = real_step(self, *a, **kw)
+        step_launches.append(tuple(x - y for x, y in zip(counts(resblock), before)))
+        return result
+
+    def timed_next(self):
+        t = time.perf_counter()
+        batch = real_next(self)
+        waits.append(time.perf_counter() - t)
+        return batch
+
+    CycleGANTrainer.train_step, UnpairedLoader.__next__ = counted_step, timed_next
+    reset_counts(resblock)
+    walls = []
+    try:
+        for max_steps, resume in ((CG_RUN_STEPS, []), (CG_RUN_STEPS + CG_RUN_MORE,
+                                                       ["--resume", "auto"])):
+            t = time.perf_counter()
+            state, trainer = cli.main(["--config", str(CYCLEGAN_CONFIGS / "baseline.yaml"),
+                                       "--strict-config", *resume, "--set", *sets,
+                                       f"training.max_steps={max_steps}"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if not resume:
+                saved = sorted(p.name for p in (root / "ckpt").glob("*.msgpack"))
+                blob = ck.load_checkpoint(ck.latest_checkpoint(root / "ckpt"))
+                restored = trainer.state_from_payload(blob["payload"], blob["step"],
+                                                      device="cuda")
+                diff = states_equal(state, restored)
+                del restored, blob
+    finally:
+        CycleGANTrainer.train_step, UnpairedLoader.__next__ = real_step, real_next
+    launches = counts(resblock)
+    n_steps = CG_RUN_STEPS + CG_RUN_MORE
+    spe = max(CG_RUN_A, CG_RUN_B) // CG_RUN_BATCH
+    epochs = n_steps // spe
+    want_ckpts = [f"ckpt_e{e}.msgpack" for e in range(CG_RUN_SAVE_EVERY, CG_RUN_STEPS // spe + 1,
+                                                      CG_RUN_SAVE_EVERY)]
+    check(saved == sorted(want_ckpts), f"checkpoints {saved}, want {sorted(want_ckpts)}")
+    check(not diff, f"the restored CycleGAN state differs from the saved one in {diff}")
+    check(state.step == n_steps, f"the resumed run ended at step {state.step}")
+    want = (3 * TRUNK_CONVS,) * 3
+    check(len(step_launches) == n_steps and all(x == want for x in step_launches),
+          f"{len(step_launches)} run steps; launches other than {want}: "
+          f"{sorted(set(step_launches) - {want})}")
+    check(launches == (n_steps * want[0],) * 3, f"CycleGAN run launched {launches}")
+    logged = [json.loads(line) for line in
+              (root / "logs" / "cyclegan_log.jsonl").read_text().splitlines()]
+    check([d["epoch"] for d in logged] == list(range(1, epochs + 1))
+          and all(np.isfinite(v) for d in logged for v in d.values()),
+          f"log epochs {[d['epoch'] for d in logged]}, want 1..{epochs}, all finite")
+    wall, wait = sum(walls), sum(waits)
+    out["run"] = {"steps": n_steps, "steps_per_s": n_steps / wall, "loader_wait_share": wait / wall,
+                  "launches": launches}
+    phase("cyclegan", cell="run", config="baseline.yaml", batch=CG_RUN_BATCH,
+          images=f"{CG_RUN_A}+{CG_RUN_B}@{CG_RUN_SIZE}", steps=f"{CG_RUN_STEPS}+{CG_RUN_MORE}",
+          launches_fwd_dx_dw="/".join(map(str, launches)), checkpoints=",".join(saved),
+          restored_bitwise=not diff, log_epochs=len(logged),
+          steps_per_s=f"{out['run']['steps_per_s']:.3f}",
+          run_wall_s="/".join(f"{w:.2f}" for w in walls),
+          loader_wait_share=f"{out['run']['loader_wait_share']:.4f}")
+    del state, trainer
+
+    # 5. serving the run's last checkpoint in both directions
+    last = root / "ckpt" / f"ckpt_e{epochs}.msgpack"
+    write_jpeg_folder(root / "photos", CG_SERVE_PHOTOS, 33)
+    for direction in ("A2B", "B2A"):
+        dst, zpath = root / f"served_{direction}", root / f"{direction}.zip"
+        gf.main(["--ckpt", str(last), "--photos", str(root / "photos"), "--out", str(dst),
+                 "--direction", direction, "--zip", str(zpath)])
+        written = sorted(dst.glob("*.jpg"))
+        with Image.open(written[0]) as im:
+            arr = np.asarray(im)
+        with zipfile.ZipFile(zpath) as zf:
+            names = sorted(zf.namelist())
+        check(len(written) == CG_SERVE_PHOTOS and arr.dtype == np.uint8
+              and arr.shape == (256, 256, 3) and names == sorted(
+                  f"{i}.jpg" for i in range(CG_SERVE_PHOTOS)),
+              f"served {direction}: {len(written)} JPEGs, {arr.dtype} {arr.shape}, zip {names[:3]}")
+    net, _ = gf.load_generator_params(last, direction="A2B")
+    net = net.to("cuda")
+    u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    reset_counts(resblock)
+    served = gf.stylize_batch(net, u8)
+    torch.cuda.synchronize()
+    check(served.dtype == torch.uint8 and tuple(served.shape) == (TIME_BATCH, 256, 256, 3)
+          and counts(resblock) == (TRUNK_CONVS, 0, 0),
+          f"served {served.dtype} {tuple(served.shape)}, launches {counts(resblock)}")
+    serve_ms = wall_ms(lambda: gf.stylize_batch(net, u8), 5)
+    out["serve_ms"] = serve_ms
+    phase("cyclegan", cell="serve", generator="resnet-bias-free", batch=TIME_BATCH,
+          directions="A2B,B2A", photos=CG_SERVE_PHOTOS, stylize_batch_ms=f"{serve_ms:.3f}",
+          images_per_s=f"{TIME_BATCH / serve_ms * 1e3:.2f}")
+    del net, u8, served
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -2123,6 +2529,9 @@ def main() -> int:
     # 10. MiFID/FID evaluation, with every count set to 0 (it launches none)
     phase_eval()
 
+    # 11. CycleGAN: kernels at its batches, steps, a run, serving
+    cg = phase_cyclegan(gen)
+
     bf16 = torch.bfloat16
     serve_shape = (TIME_BATCH, 64, 64, 256)
     flops = lambda shape: 2 * 9 * int(np.prod(shape)) * 256
@@ -2152,6 +2561,17 @@ def main() -> int:
     times = attn["times"]
     attn_bwd = ["spatial_attention_dkv", "spatial_attention_dq"]
 
+    def cyclegan(op, i):
+        # per step of baseline.yaml / baseline_tpu.yaml, and over the CLI run;
+        # times, bounds and cuDNN's at (1|48, 64, 64, 256)
+        k = cg["kernels"]
+        return {"cyclegan_launches": {"per_step": 3 * TRUNK_CONVS,
+                                      "run": cg["run"]["launches"][i]},
+                **{f"cyclegan_{key}": {f"{n}x64x64x256": k[(op, n)][key]
+                                       for n in (CYCLEGAN_BATCHES[0], CYCLEGAN_BATCHES[-1])}
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                               "library_device_ms")}}
+
     def dqk128(kind, i):
         # the d_qk-128 instance (ngf 160 and 256 in attention_widths): its
         # launches there, its times at DQK128_SHAPE (backward at its chunk)
@@ -2170,13 +2590,15 @@ def main() -> int:
             serve_ms=conv_ms[TIME_BATCH]["kernel"], serve_plain_ms=conv_ms[TIME_BATCH]["plain"],
             serve_bound_ms=fwd_bound(serve_shape)[0],
             serve_library_ms=conv_ms[TIME_BATCH]["cudnn_bf16"],
-            train_run_launches=run["launches"][0]),
+            train_run_launches=run["launches"][0], **cyclegan("fwd", 0)),
         row("reflect_conv3x3_dx", resblock_py.format(229), train_launches[1],
             errs[("dx", TRAIN_SHAPE, bf16)], grad_ms["dx"][0], grad_ms["dx"][1],
-            conv_bounds["dx"], grad_ms["dx"][2], train_run_launches=run["launches"][1]),
+            conv_bounds["dx"], grad_ms["dx"][2], train_run_launches=run["launches"][1],
+            **cyclegan("dx", 1)),
         row("reflect_conv3x3_dw", resblock_py.format(297), train_launches[2],
             errs[("dw", TRAIN_SHAPE, bf16)], grad_ms["dw"][0], grad_ms["dw"][1],
-            conv_bounds["dw"], grad_ms["dw"][2], train_run_launches=run["launches"][2]),
+            conv_bounds["dw"], grad_ms["dw"][2], train_run_launches=run["launches"][2],
+            **cyclegan("dw", 2)),
         row("spatial_attention", flash_py.format(758), attn_launches[0],
             errs[("fwd", ATTN_SHAPE, bf16)], times["fwd"][0], times["fwd"][1],
             attn_bounds["fwd"], attn["library"]["fwd"], **dqk128("fwd", 0)),

@@ -9,7 +9,9 @@ Counterpart of ``gan_variant_research_tpu/cli/generate_folder.py``:
 
 - reads the JAX package's msgpack checkpoint; EMA-first restore
   (``ema_G.shadow``, then ``generator`` with a warning); the generator is
-  rebuilt from the config stored in the checkpoint;
+  rebuilt from the config stored in the checkpoint; a CycleGAN checkpoint
+  (``G_A2B`` / ``G_B2A``, no EMA) serves the generator ``--direction``
+  names, the bias-free ResNet or the U-Net as its ``model`` config says;
 - recursive listing over 7 extensions, mirrored output tree, ``__dupN``
   names on collisions;
 - host: PIL decode and bilinear resize to size^2; device: ``stylize_batch``;
@@ -34,13 +36,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gan_variant_research_tpu_torch.convert import generator_state_dict_from_jax
+from gan_variant_research_tpu_torch.convert import (
+    cyclegan_generator_state_dict_from_jax,
+    generator_state_dict_from_jax,
+)
 from gan_variant_research_tpu_torch.core.precision import DEFAULT_POLICY, policy_from_config
 from gan_variant_research_tpu_torch.data.folders import enumerate_images
 from gan_variant_research_tpu_torch.ops.color import to_uint8
 from gan_variant_research_tpu_torch.ops.resize import resize_bilinear
 from gan_variant_research_tpu_torch.train.checkpoint import load_checkpoint
 from gan_variant_research_tpu_torch.train.cut_trainer import build_generator
+from gan_variant_research_tpu_torch.train.cyclegan_trainer import build_cyclegan_generator
 
 
 def parse_args(argv=None):
@@ -53,7 +59,7 @@ def parse_args(argv=None):
     p.add_argument("--limit", type=int, default=None, help="Max images to process")
     p.add_argument("--no-ema", action="store_true", help="Use raw generator params")
     p.add_argument("--direction", choices=("A2B", "B2A"), default="A2B",
-                   help="For CycleGAN checkpoints (not ported yet)")
+                   help="For CycleGAN checkpoints: serve G_A2B or G_B2A")
     p.add_argument("--zip", dest="zip_path", default=None,
                    help="Also write a flat submission zip (0.jpg..N.jpg)")
     p.add_argument("--quality", type=int, default=95)
@@ -75,15 +81,22 @@ def serving_device(name: str) -> torch.device:
 def load_generator_params(ckpt_path: str | Path, use_ema: bool = True,
                           direction: str = "A2B"):
     """EMA-first parameter selection and generator reconstruction from the
-    stored config. Returns (generator on the CPU in eval mode, config)."""
+    stored config; for a CycleGAN checkpoint, the generator of ``direction``
+    (``A2B`` or ``B2A``). Returns (generator on the CPU in eval mode,
+    config)."""
     blob = load_checkpoint(ckpt_path)
     payload = blob["payload"]
     config = blob["config"] or {}
+    policy = policy_from_config(config) if config else DEFAULT_POLICY
 
-    if "G_A2B" in payload:
-        raise NotImplementedError(
-            f"CycleGAN checkpoint ({direction}): the CycleGAN generators are not "
-            "ported yet (ROADMAP.md Queue 1, 'CycleGAN stack')")
+    if "G_A2B" in payload:   # CycleGAN joint checkpoint
+        key = {"A2B": "G_A2B", "B2A": "G_B2A"}[direction]
+        model_cfg = config.get("model") or {}
+        generator = build_cyclegan_generator(model_cfg, policy)
+        generator.load_state_dict(cyclegan_generator_state_dict_from_jax(
+            payload[key], model_cfg.get("generator", "resnet")))
+        print(f"CycleGAN checkpoint: serving {key}", file=sys.stderr)
+        return generator.eval(), config
 
     params = None
     if use_ema:
@@ -98,7 +111,6 @@ def load_generator_params(ckpt_path: str | Path, use_ema: bool = True,
                        "(looked for ema_G.shadow and generator)")
 
     gen_cfg = (config.get("model") or {}).get("generator") or {}
-    policy = policy_from_config(config) if config else DEFAULT_POLICY
     generator = build_generator(gen_cfg, policy)
     generator.load_state_dict(generator_state_dict_from_jax(params))
     return generator.eval(), config

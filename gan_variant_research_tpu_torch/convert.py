@@ -15,6 +15,11 @@ names, so the mapping is one to one:
   ``channel_attn_i/fc{1,2}`` (Dense ``kernel`` (in, out) -> ``weight``
   (out, in), bias as is); ``style_gate_i/{gamma,beta}`` as they are.
 
+``unet_state_dict_from_jax`` maps the CycleGAN U-Net (flax auto-names:
+``_SameConv_i/Conv_0``, ``ConvTranspose_i``, ``AffineInstanceNorm_i``);
+``patchgan_state_dict_from_jax`` one PatchGAN (CycleGAN's D_A, D_B);
+``cyclegan_state_from_jax`` the CycleGAN joint payload's four nets.
+
 ``jax_tree_from_state_dict`` is the inverse, for the checkpoint writer.
 ``inception_state_dict_from_jax`` maps the JAX package's FID InceptionV3
 tree to torch-fidelity's names (the evaluator's ``.npz`` weights).
@@ -26,6 +31,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from gan_variant_research_tpu_torch.models.generator_unet import N_CONVS, N_NORMS, N_UPS
 
 
 def _tensor(a) -> torch.Tensor:
@@ -114,29 +121,96 @@ def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def patchgan_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``PatchGANDiscriminator`` param tree (``conv_n``, ``conv_out``,
+    each ``kernel`` HWIO and ``bias``) -> the port's
+    ``PatchGANDiscriminator.state_dict()``, keys behind ``prefix``. Raises
+    on modules or leaves it cannot map."""
+    sd: dict[str, torch.Tensor] = {}
+    leaves = {"kernel": ("weight", _hwio_to_oihw), "bias": ("bias", _tensor)}
+    where = prefix.rstrip(".") or "PatchGAN"
+    if "conv_out" not in params:
+        raise ValueError(f"{where} does not look like a PatchGAN: modules {sorted(params)[:5]}")
+    for conv, node in params.items():
+        if not (conv == "conv_out" or conv.startswith("conv_")):
+            raise ValueError(f"{where} has a module the port cannot map: {conv}")
+        node = dict(node)
+        for jax_name, (torch_name, fn) in leaves.items():
+            if jax_name in node:
+                sd[f"{prefix}{conv}.{torch_name}"] = fn(node.pop(jax_name))
+        if node:
+            raise ValueError(f"{where}/{conv} has leaves the port cannot map: {sorted(node)}")
+    return sd
+
+
 def discriminator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """JAX ``MultiscaleDiscriminator`` param tree (``scale_i/conv_n``,
     ``scale_i/conv_out``, each ``kernel`` HWIO and ``bias``) -> the port's
     ``MultiscaleDiscriminator.state_dict()``. Raises on modules or leaves it
     cannot map (spectral-norm state lives outside ``params`` and is not
     ported)."""
-    sd: dict[str, torch.Tensor] = {}
-    leaves = {"kernel": ("weight", _hwio_to_oihw), "bias": ("bias", _tensor)}
     scales = sorted(k for k in params if k.startswith("scale_"))
     if not scales or set(params) != set(scales):
         raise ValueError("Param tree does not look like a MultiscaleDiscriminator: "
                          f"modules {sorted(params)[:5]}")
+    sd: dict[str, torch.Tensor] = {}
     for scale in scales:
-        for conv, node in params[scale].items():
-            if not (conv == "conv_out" or conv.startswith("conv_")):
-                raise ValueError(f"{scale} has a module the port cannot map: {conv}")
-            node = dict(node)
-            for jax_name, (torch_name, fn) in leaves.items():
-                if jax_name in node:
-                    sd[f"{scale}.{conv}.{torch_name}"] = fn(node.pop(jax_name))
-            if node:
-                raise ValueError(f"{scale}/{conv} has leaves the port cannot map: {sorted(node)}")
+        sd.update(patchgan_state_dict_from_jax(params[scale], f"{scale}."))
     return sd
+
+
+def unet_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``UNetGenerator`` param tree -> the port's
+    ``UNetGenerator.state_dict()``: ``_SameConv_i/Conv_0/{kernel,bias}``
+    (HWIO -> OIHW), ``ConvTranspose_i/{kernel,bias}`` (the flax kernel ->
+    torch's (in, out, kh, kw) ConvTranspose weight, flipped) and
+    ``AffineInstanceNorm_i/{gamma,beta}``. Strict: a module or leaf that is
+    missing or extra raises."""
+    layout = {**{f"_SameConv_{i}": ("Conv_0", {"kernel": _hwio_to_oihw, "bias": _tensor})
+                 for i in range(N_CONVS)},
+              **{f"ConvTranspose_{i}": (None, {"kernel": _hwio_to_convtranspose,
+                                               "bias": _tensor}) for i in range(N_UPS)},
+              **{f"AffineInstanceNorm_{i}": (None, {"gamma": _tensor, "beta": _tensor})
+                 for i in range(N_NORMS)}}
+    if set(params) != set(layout):
+        raise ValueError(f"Param tree is not the U-Net's: missing "
+                         f"{sorted(set(layout) - set(params))}, unexpected "
+                         f"{sorted(set(params) - set(layout))}")
+    sd: dict[str, torch.Tensor] = {}
+    for module, (child, leaves) in layout.items():
+        node, path = params[module], module
+        if child is not None:
+            if set(node) != {child}:
+                raise ValueError(f"{module} holds {sorted(node)}, want [{child!r}]")
+            node, path = node[child], f"{module}.{child}"
+        if set(node) != set(leaves):
+            raise ValueError(f"{path} holds leaves {sorted(node)}, want {sorted(leaves)}")
+        for jax_name, fn in leaves.items():
+            torch_name = "weight" if jax_name == "kernel" else jax_name
+            sd[f"{path}.{torch_name}"] = fn(node[jax_name])
+    return sd
+
+
+def cyclegan_generator_state_dict_from_jax(params: dict,
+                                           generator: str = "resnet") -> dict[str, torch.Tensor]:
+    """One CycleGAN generator's JAX tree -> the port's ``state_dict``;
+    ``generator`` is the config's ``model.generator``: ``resnet`` (the
+    bias-free ResNet) or ``unet``."""
+    if generator == "unet":
+        return unet_state_dict_from_jax(params)
+    if generator == "resnet":
+        return generator_state_dict_from_jax(params)
+    raise ValueError(f"model.generator must be resnet|unet, got {generator!r}")
+
+
+def cyclegan_state_from_jax(payload: dict, generator: str = "resnet") -> dict:
+    """The JAX CycleGAN joint tree (``G_A2B``, ``G_B2A``, ``D_A``, ``D_B``,
+    as in its checkpoint payload) -> ``{"G_A2B", "G_B2A", "D_A", "D_B"}``,
+    the port's ``state_dict`` of each net."""
+    g = lambda tree: cyclegan_generator_state_dict_from_jax(tree, generator)  # noqa: E731
+    return {"G_A2B": g(payload["G_A2B"]), "G_B2A": g(payload["G_B2A"]),
+            "D_A": patchgan_state_dict_from_jax(payload["D_A"]),
+            "D_B": patchgan_state_dict_from_jax(payload["D_B"])}
 
 
 _INCEPTION_LEAVES = {"conv_kernel": ("conv.weight", _hwio_to_oihw),
@@ -183,9 +257,10 @@ def _jax_leaf(module: str, name: str, t: torch.Tensor) -> tuple[str, torch.Tenso
     t = t.detach().float()
     if name == "weight" or name.endswith("_weight"):
         jax_name = name[:-len("weight")] + "kernel"
-        if module.startswith("up_"):
+        last = module.rsplit(".", 1)[-1]
+        if last.startswith(("up_", "ConvTranspose_")):
             t = t.permute(2, 3, 0, 1).flip(0, 1)
-        elif module.rsplit(".", 1)[-1] in ("fc1", "fc2"):
+        elif last in ("fc1", "fc2"):
             t = t.T
         else:
             t = t.permute(2, 3, 1, 0)
@@ -194,10 +269,12 @@ def _jax_leaf(module: str, name: str, t: torch.Tensor) -> tuple[str, torch.Tenso
 
 
 def jax_tree_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
-    """A port ``state_dict`` (generator or discriminator, or any dict keyed
-    like one, e.g. Adam's moments) -> the JAX param tree as nested dicts of
-    float32 tensors on the leaves' device: what
-    ``generator_state_dict_from_jax`` and
+    """A port ``state_dict`` (a generator, ResNet or U-Net, or a
+    discriminator, or any dict keyed like one, e.g. Adam's moments; keys may
+    sit behind a net's name, as CycleGAN's ``G_A2B.``) -> the JAX param tree
+    as nested dicts of float32 tensors on the leaves' device: what
+    ``generator_state_dict_from_jax``, ``unet_state_dict_from_jax``,
+    ``patchgan_state_dict_from_jax`` and
     ``discriminator_state_dict_from_jax`` map back."""
     tree: dict = {}
     for key, value in sd.items():

@@ -3,7 +3,7 @@ the keys the port's train step reads.
 
 Counterpart of ``gan_variant_research_tpu/core/config.py`` (``ConfigError``,
 ``load_config``, ``_coerce``, ``override_config``, ``validate_config``,
-``deep_update``, ``CUT_SCHEMA``). The machine with the card has no PyYAML:
+``deep_update``, ``CUT_SCHEMA``, ``CYCLEGAN_SCHEMA``). The machine with the card has no PyYAML:
 ``load_config`` reads YAML with ``parse_yaml``, a reader of the subset the
 JAX package's ``configs/*.yaml`` use (block mappings and sequences by
 indentation, ``#`` comments, one-line flow sequences and mappings, plain and
@@ -519,6 +519,53 @@ CUT_SCHEMA: dict = {
     },
 }
 
+
+# Schema for the CycleGAN config (the JAX package's CYCLEGAN_SCHEMA, which
+# mirrors Basic_GAN/configs/baseline.yaml). ``model.use_s2d``,
+# ``model.pad_free``, ``runtime.donate``, ``runtime.steps_per_call`` and
+# ``parallel.*`` are TPU levers: accepted and ignored.
+CYCLEGAN_SCHEMA: dict = {
+    "data": {
+        "root": str,
+        "domain_a": str,
+        "domain_b": str,
+        "img_size": int,
+        "load_size": int,
+        "num_workers": int,
+    },
+    "training": {
+        "epochs": int,
+        "batch_size": int,
+        "amp": bool,
+        "seed": int,
+        "save_dir": str,
+        "log_dir": str,
+        "save_every": int,
+        "max_steps": int,
+        "async_save": bool,
+    },
+    "optim": {
+        "lr_g": _num,
+        "lr_d": _num,
+        "betas": list,
+        "lr_decay_after": int,
+    },
+    "loss": {"gan": str, "lambda_cycle": _num, "lambda_identity": _num},
+    "model": {
+        "ngf": int,
+        "ndf": int,
+        "n_blocks": int,
+        "n_layers": int,
+        "spectral_norm_d": bool,
+        "generator": str,  # "resnet" | "unet"
+        "use_s2d": bool,
+        "pad_free": bool,
+    },
+    "runtime": {"device": str, "platform": str, "precision": str,
+                "donate": bool,
+                "steps_per_call": int},
+    "parallel": {"data_axis": str, "num_devices": int, "multihost": (bool, str)},
+}
 
 # --------------------------------------------------------------------------- #
 # the keys the train step reads

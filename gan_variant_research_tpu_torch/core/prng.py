@@ -1,11 +1,12 @@
 """The port's sampler of one train step's random draws.
 
 Counterpart of ``gan_variant_research_tpu/core/prng.py::step_keys`` and of
-the ``jax.random`` calls inside the JAX step: one ``torch.Generator`` (the
-train state's, on the state's device) draws every random input of a step,
-with the same shapes, ranges and dtypes as the JAX draws. The JAX bits
-cannot be reproduced; the parity tests fill a ``StepDraws`` from
-``jax.random`` under the JAX key splits instead.
+the ``jax.random`` calls inside the JAX steps (CUT's and CycleGAN's): one
+``torch.Generator`` (the train state's, on the state's device) draws every
+random input of a step, with the same shapes, ranges and dtypes as the JAX
+draws. The JAX bits cannot be reproduced; the parity tests fill a
+``StepDraws`` or ``CycleGANDraws`` from ``jax.random`` under the JAX key
+splits instead.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from gan_variant_research_tpu_torch.data.augment import AugmentDraws
+from gan_variant_research_tpu_torch.data.augment import AugmentDraws, CropFlipDraws
 from gan_variant_research_tpu_torch.ops.diffaugment import (
     CUTOUT_RATIOS,
     DiffAugmentDraws,
@@ -122,6 +123,31 @@ def sample_step(gen: torch.Generator, batch: int, image_size: int, policy,
     )
 
 
+@dataclasses.dataclass
+class CycleGANDraws:
+    """Every random input of one CycleGAN step, named as the JAX step's keys
+    (``step_keys(base_key, step, ("aug_a", "aug_b"))``): the two
+    ``cyclegan_augment`` calls' crop offsets and flips."""
+
+    aug_a: CropFlipDraws
+    aug_b: CropFlipDraws
+
+
+def sample_crop_flip(gen: torch.Generator, batch: int, height: int, width: int,
+                     crop: int) -> CropFlipDraws:
+    return CropFlipDraws(off_i=_randint(gen, batch, 0, height - crop + 1),
+                         off_j=_randint(gen, batch, 0, width - crop + 1),
+                         flip=_uniform(gen, batch, 0.0, 1.0) < 0.5)
+
+
+def sample_cyclegan(gen: torch.Generator, batch: int, height: int, width: int,
+                    crop: int) -> CycleGANDraws:
+    """One CycleGAN step's draws for uint8 batches of (batch, height, width)
+    cropped to ``crop``^2."""
+    return CycleGANDraws(aug_a=sample_crop_flip(gen, batch, height, width, crop),
+                         aug_b=sample_crop_flip(gen, batch, height, width, crop))
+
+
 # --------------------------------------------------------------------------- #
 # the JAX run key a checkpoint carries (``base_key``)
 
@@ -143,12 +169,14 @@ def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray) -> tuple:
     return x0, x1
 
 
-def jax_base_key(seed: int) -> np.ndarray:
-    """The key data (uint32 (2,)) of the run key that the JAX
-    ``CUTTrainer.init_state`` draws for ``seed``: ``jax.random.key(seed)``
-    is (0, seed) for a uint32 seed, split three ways (the partitionable
-    threefry split: counters (0, i)), and the run key is the third."""
+def jax_base_key(seed: int, splits: int = 3) -> np.ndarray:
+    """The key data (uint32 (2,)) of the run key that the JAX trainers'
+    ``init_state`` draws for ``seed``: ``jax.random.key(seed)`` is (0,
+    seed) for a uint32 seed, split ``splits`` ways (the partitionable
+    threefry split: counters (0, i)), and the run key is the last: the
+    third of three for ``CUTTrainer``, the fifth of five for
+    ``CycleGANTrainer``."""
     with np.errstate(over="ignore"):
-        b0, b1 = _threefry2x32(0, int(seed) & 0xFFFFFFFF, np.zeros(3, np.uint32),
-                               np.arange(3, dtype=np.uint32))
-    return np.array([b0[2], b1[2]], dtype=np.uint32)
+        b0, b1 = _threefry2x32(0, int(seed) & 0xFFFFFFFF, np.zeros(splits, np.uint32),
+                               np.arange(splits, dtype=np.uint32))
+    return np.array([b0[-1], b1[-1]], dtype=np.uint32)

@@ -1,14 +1,20 @@
 """Training augmentation on the device, on injected random draws.
 
-Counterpart of ``gan_variant_research_tpu/data/augment.py::train_augment``:
-uint8 NHWC -> [0, 1] -> per-sample crop (side s * min(H, W), continuous
-offset) + antialiased cubic resize as two dense resampling products ->
-clip -> horizontal flip -> colour jitter (brightness, contrast, saturation,
-hue, in that order) -> [-1, 1]. All float32.
+Counterpart of ``gan_variant_research_tpu/data/augment.py``:
 
-The JAX function draws from its key; here every random number comes in an
-``AugmentDraws`` (``core/prng.py`` samples one, the tests fill one from
-``jax.random`` under the JAX key splits).
+- ``train_augment`` (CUT): uint8 NHWC -> [0, 1] -> per-sample crop (side
+  s * min(H, W), continuous offset) + antialiased cubic resize as two dense
+  resampling products -> clip -> horizontal flip -> colour jitter
+  (brightness, contrast, saturation, hue, in that order) -> [-1, 1];
+- ``cyclegan_augment`` (CycleGAN, Basic_GAN's train transform after the
+  host's resize to ``load_size``): an integer-offset crop of ``crop``^2 ->
+  horizontal flip -> [-1, 1].
+
+All float32.
+
+The JAX functions draw from their key; here every random number comes in an
+``AugmentDraws`` or a ``CropFlipDraws`` (``core/prng.py`` samples them, the
+tests fill them from ``jax.random`` under the JAX key splits).
 """
 
 from __future__ import annotations
@@ -33,6 +39,17 @@ class AugmentDraws:
     contrast: torch.Tensor
     saturation: torch.Tensor
     hue: torch.Tensor
+
+
+@dataclasses.dataclass
+class CropFlipDraws:
+    """CycleGAN's per-sample draws, each of shape (B,): the crop's integer
+    offsets ``off_i``, ``off_j`` in [0, H - crop] and [0, W - crop], and
+    ``flip`` bool."""
+
+    off_i: torch.Tensor
+    off_j: torch.Tensor
+    flip: torch.Tensor
 
 
 def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
@@ -139,4 +156,18 @@ def train_augment(images_u8: torch.Tensor, image_size: int,
     x01 = torch.clamp(x01, 0.0, 1.0)
     x01 = random_hflip(x01, draws.flip)
     x01 = color_jitter(x01, draws.brightness, draws.contrast, draws.saturation, draws.hue)
+    return x01 * 2.0 - 1.0
+
+
+def cyclegan_augment(images_u8: torch.Tensor, crop_size: int,
+                     draws: CropFlipDraws) -> torch.Tensor:
+    """uint8 NHWC batch at the load size -> float32 batch of ``crop_size``^2
+    in [-1, 1]: each sample's crop at its offsets, then its flip."""
+    b = images_u8.shape[0]
+    span = torch.arange(crop_size, device=images_u8.device)
+    rows = draws.off_i.to(images_u8.device).view(b, 1) + span
+    cols = draws.off_j.to(images_u8.device).view(b, 1) + span
+    batch = torch.arange(b, device=images_u8.device).view(b, 1, 1)
+    x01 = images_u8[batch, rows[:, :, None], cols[:, None, :]].float() / 255.0
+    x01 = random_hflip(x01, draws.flip.to(images_u8.device))
     return x01 * 2.0 - 1.0

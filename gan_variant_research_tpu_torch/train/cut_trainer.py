@@ -116,6 +116,19 @@ def build_discriminator(disc_cfg: dict, policy: Policy,
     )
 
 
+def param_leaves(module: torch.nn.Module, sd: dict, device: torch.device | str,
+                 prefix: str = "") -> dict[str, torch.Tensor]:
+    """``sd`` (exactly ``module``'s state-dict keys, else ``ValueError``) as
+    float32 leaf tensors on ``device`` that require grad, keyed behind
+    ``prefix``."""
+    names = set(module.state_dict())
+    if set(sd) != names:
+        raise ValueError(f"state dict keys differ from the module's: missing "
+                         f"{sorted(names - set(sd))}, unexpected {sorted(set(sd) - names)}")
+    return {prefix + k: v.detach().to(device=device, dtype=torch.float32).clone()
+            .requires_grad_() for k, v in sd.items()}
+
+
 @dataclasses.dataclass
 class CUTTrainState:
     """``g_params`` / ``d_params``: float32 leaf tensors keyed by the
@@ -201,16 +214,8 @@ class CUTTrainer:
 
     def state_from_state_dicts(self, g_sd: dict, d_sd: dict, seed: int,
                                device: torch.device | str) -> CUTTrainState:
-        def leaves(module, sd):
-            names = set(module.state_dict())
-            if set(sd) != names:
-                raise ValueError(f"state dict keys differ from the module's: missing "
-                                 f"{sorted(names - set(sd))}, unexpected {sorted(set(sd) - names)}")
-            return {k: v.detach().to(device=device, dtype=torch.float32).clone()
-                    .requires_grad_() for k, v in sd.items()}
-
-        g_params = leaves(self.generator, g_sd)
-        d_params = leaves(self.discriminator, d_sd)
+        g_params = param_leaves(self.generator, g_sd, device)
+        d_params = param_leaves(self.discriminator, d_sd, device)
         return CUTTrainState(
             step=0, g_params=g_params, d_params=d_params,
             opt_g=self.opt_g.init(g_params), opt_d=self.opt_d.init(d_params),

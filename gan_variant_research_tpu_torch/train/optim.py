@@ -1,9 +1,13 @@
 """Adam behind a global-norm clip, with optax's arithmetic.
 
 Counterpart of ``gan_variant_research_tpu/train/optim.py``:
-``chain(clip_by_global_norm(max_norm), adam(lr, b1, b2, eps=1e-8))``, and
-the cosine schedule when ``scheduler.enabled``. The state keeps ``count``,
-``mu`` and ``nu`` per parameter, as optax's ``ScaleByAdamState`` does.
+``chain(clip_by_global_norm(max_norm), adam(lr, b1, b2, eps=1e-8))``, or
+``adam`` alone without a clip, and two learning-rate rules: the cosine
+schedule when ``scheduler.enabled`` (CUT), and CycleGAN's epoch decay
+(``epoch_decay`` in ``train/cyclegan_trainer.py:111-121`` of the JAX
+package: the LambdaLR rule, constant, then linear to 0 between two epochs,
+the epoch read from the update count). The state keeps ``count``, ``mu``
+and ``nu`` per parameter, as optax's ``ScaleByAdamState`` does.
 
 The clip is optax's rule: the gradients are scaled by ``max_norm / norm``
 only when ``norm >= max_norm``, with no epsilon (``torch.nn.utils.
@@ -38,10 +42,27 @@ class Optimizer:
     eps: float = 1e-8
     max_norm: float | None = 10.0
     cosine: tuple[float, int] | None = None   # (lr_min, total_steps)
+    # (steps_per_epoch, decay_start_epoch, epochs)
+    epoch_decay: tuple[int, int, int] | None = None
+
+    @property
+    def scheduled(self) -> bool:
+        """Whether the rate follows a schedule (optax then keeps a count of
+        its own beside Adam's)."""
+        return self.cosine is not None or self.epoch_decay is not None
 
     def learning_rate(self, count: int) -> float:
         """The rate of the update that follows ``count`` earlier ones
-        (optax's ``cosine_decay_schedule`` with ``alpha = lr_min / lr``)."""
+        (optax's ``cosine_decay_schedule`` with ``alpha = lr_min / lr``, or
+        the epoch decay: ``lr`` before ``decay_start_epoch``, then ``lr``
+        times ``1 - (epoch - start) / max(1, epochs - start)`` clipped to
+        [0, 1])."""
+        if self.epoch_decay is not None:
+            steps_per_epoch, start, epochs = self.epoch_decay
+            epoch = count // steps_per_epoch
+            if epoch < start:
+                return self.lr
+            return self.lr * min(max(1.0 - (epoch - start) / max(1, epochs - start), 0.0), 1.0)
         if self.cosine is None:
             return self.lr
         lr_min, total = self.cosine
@@ -77,12 +98,11 @@ class Optimizer:
     def state_dict(self, state: AdamState, tree: Callable[[dict], dict]) -> dict:
         """``state`` in the layout ``flax.serialization.to_state_dict`` gives
         optax's state of the same chain: ``{"0": {} (the clip), "1": {"0":
-        {count, mu, nu} (scale_by_adam), "1": {} or, with the cosine
-        schedule, {count}}}``, without the clip's level when there is no
-        clip. ``tree`` maps the moments' dicts to the JAX param tree."""
+        {count, mu, nu} (scale_by_adam), "1": {} or, with a schedule,
+        {count}}}``, without the clip's level when there is no clip. ``tree`` maps the moments' dicts to the JAX param tree."""
         count = np.asarray(state.count, dtype=np.int32)
         adam = {"0": {"count": count, "mu": tree(state.mu), "nu": tree(state.nu)},
-                "1": {"count": count} if self.cosine is not None else {}}
+                "1": {"count": count} if self.scheduled else {}}
         return {"0": {}, "1": adam} if self.max_norm is not None else adam
 
     def load_state_dict(self, data: dict, leaves: Callable[[dict], dict]) -> AdamState:

@@ -142,6 +142,23 @@ def test_cut_schema_is_the_jax_schema():
     assert shape(cfg.CUT_SCHEMA) == shape(jax_config.CUT_SCHEMA)
 
 
+def test_cyclegan_schema_is_the_jax_schema():
+    def shape(node):
+        if isinstance(node, dict):
+            return {k: shape(v) for k, v in node.items()}
+        return node
+
+    assert shape(cfg.CYCLEGAN_SCHEMA) == shape(jax_config.CYCLEGAN_SCHEMA)
+
+
+@pytest.mark.parametrize("name", ["baseline.yaml", "baseline_tpu.yaml"])
+def test_port_cyclegan_configs_equal_the_jax_files(name):
+    port = REPO / "gan_variant_research_tpu_torch" / "configs" / name
+    jax_file = REPO / "gan_variant_research_tpu" / "configs" / name
+    assert _same(cfg.load_config(port), yaml.safe_load(jax_file.read_text()))
+    assert cfg.validate_config(cfg.load_config(port), cfg.CYCLEGAN_SCHEMA, strict=True) == []
+
+
 def test_deep_update_matches_jax():
     base = {"a": {"b": 1, "c": [1, 2]}, "d": 2}
     extra = {"a": {"c": [3], "e": {"f": 4}}, "g": None}

@@ -1,6 +1,6 @@
 """Port's serving path: the flax-free checkpoint reader, the EMA-first
-restore, ``stylize_batch`` vs the JAX device step, and ``stylize_folder``'s
-output tree and zip."""
+restore, CycleGAN checkpoints in both directions, ``stylize_batch`` vs the
+JAX device step, and ``stylize_folder``'s output tree and zip."""
 
 import zipfile
 
@@ -18,6 +18,7 @@ from gan_variant_research_tpu.train.checkpoint import save_checkpoint
 from gan_variant_research_tpu_torch.cli import generate_folder as gf
 from gan_variant_research_tpu_torch.convert import generator_state_dict_from_jax
 from gan_variant_research_tpu_torch.train.checkpoint import load_checkpoint
+from gan_variant_research_tpu_torch.train.checkpoint import save_checkpoint as port_save_checkpoint
 
 CONFIG = {"model": {"generator": {"ngf": 8, "n_blocks": 2}},
           "runtime": {"precision": "fp32"}}
@@ -92,11 +93,84 @@ def test_load_generator_params_is_ema_first(ckpt, capsys):
     assert "no EMA shadow" in capsys.readouterr().err
 
 
-def test_cyclegan_checkpoint_is_not_ported_yet(tmp_path, ckpt):
-    path = save_checkpoint(tmp_path / "cg.msgpack", 1,
-                           {"G_A2B": ckpt["raw"], "G_B2A": ckpt["raw"]})
-    with pytest.raises(NotImplementedError, match="CycleGAN"):
-        gf.load_generator_params(path)
+@pytest.fixture(scope="module")
+def cyclegan_ckpts(tmp_path_factory):
+    """CycleGAN checkpoints as the JAX trainer writes them, for the ResNet and
+    the U-Net (ngf 4, fp32; the weights moved off their init, so that the
+    two directions differ)."""
+    from gan_variant_research_tpu.train.cyclegan_trainer import CycleGANTrainer
+    from test_cyclegan_trainer import tiny_cfg
+
+    rng = np.random.default_rng(9)
+    paths = {}
+    for kind in ("resnet", "unet"):
+        cfg = tiny_cfg(model={"generator": kind}, data={"img_size": 32, "load_size": 32})
+        trainer = CycleGANTrainer(cfg, steps_per_epoch=1)
+        payload = trainer.checkpoint_payload(trainer.init_state())
+        for name in ("G_A2B", "G_B2A"):
+            payload[name] = jax.tree_util.tree_map(
+                lambda a: np.asarray(a) + rng.normal(0, 0.1, a.shape).astype(np.float32),
+                payload[name])
+        paths[kind] = save_checkpoint(tmp_path_factory.mktemp("cg") / "ckpt_e1.msgpack", 1,
+                                      payload, config=cfg)
+    return paths
+
+
+def test_cyclegan_checkpoint_is_not_ported_yet(cyclegan_ckpts, capsys):
+    """(Named when CycleGAN checkpoints raised here.) A JAX-written CycleGAN
+    checkpoint serves ``G_A2B`` or ``G_B2A``, the bias-free ResNet or the
+    U-Net as its config says: the port's ``stylize_batch`` against the JAX
+    device step on the JAX generator, within one uint8 level, for each
+    generator and direction."""
+    from gan_variant_research_tpu.cli.generate_folder import (
+        load_generator_params as jax_load_generator_params,
+    )
+
+    size = 32
+    u8 = np.random.default_rng(5).integers(0, 256, (2, 40, 36, 3), dtype=np.uint8)
+    x01 = jnp.asarray(u8, jnp.float32) / 255.0
+    x = jnp.clip(jax_resize_bilinear(x01, (size, size)), 0.0, 1.0) * 2.0 - 1.0
+    for kind, path in cyclegan_ckpts.items():
+        served = {}
+        for direction in ("A2B", "B2A"):
+            jax_gen, params, _ = jax_load_generator_params(str(path), direction=direction)
+            gen, config = gf.load_generator_params(path, direction=direction)
+            assert f"serving G_{direction}" in capsys.readouterr().err
+            assert type(gen).__name__ == {"resnet": "ResNetGenerator",
+                                          "unet": "UNetGenerator"}[kind]
+            assert config["model"]["generator"] == kind and not gen.training
+            want = np.asarray(jax_to_uint8(jax_gen.apply({"params": params}, x))).astype(int)
+            got = gf.stylize_batch(gen, torch.from_numpy(u8), size)
+            assert got.dtype == torch.uint8 and got.shape == (2, size, size, 3)
+            assert np.abs(got.numpy().astype(int) - want).max() <= 1, (kind, direction)
+            served[direction] = got
+        assert not torch.equal(served["A2B"], served["B2A"])
+
+
+def test_port_cyclegan_checkpoint_serves_through_main(tmp_path):
+    """A checkpoint the port's CycleGAN trainer wrote, through
+    ``gvr-torch-generate-folder`` in both directions on the CPU."""
+    from gan_variant_research_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+    from test_cyclegan_trainer import tiny_cfg
+
+    cfg = tiny_cfg(data={"img_size": 32, "load_size": 32})
+    trainer = CycleGANTrainer(cfg, steps_per_epoch=1)
+    state = trainer.init_state(device="cpu")
+    path = port_save_checkpoint(tmp_path / "ckpt_e1.msgpack", state.step,
+                                trainer.checkpoint_payload(state), config=cfg)
+    photos = tmp_path / "photos"
+    _write_tree(photos)
+    for direction in ("A2B", "B2A"):
+        out = tmp_path / direction
+        gf.main(["--ckpt", str(path), "--photos", str(photos), "--out", str(out), "--size", "32",
+                 "--batch", "2", "--direction", direction, "--zip", str(tmp_path / f"{direction}.zip"),
+                 "--device", "cpu"])
+        written = sorted(out.rglob("*.jpg"))
+        assert len(written) == 5
+        with Image.open(written[0]) as im:
+            assert im.size == (32, 32) and im.mode == "RGB"
+        with zipfile.ZipFile(tmp_path / f"{direction}.zip") as zf:
+            assert sorted(zf.namelist()) == sorted(f"{i}.jpg" for i in range(5))
 
 
 @pytest.mark.parametrize("hw", [(32, 32), (48, 40)])

@@ -106,6 +106,28 @@ def test_eval_slice_module_imports_without_jax(module):
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+CYCLEGAN_SLICE_MODULES = ("models.generator_unet", "train.cyclegan_trainer",
+                          "train.cyclegan_loop", "cli.train_cyclegan", "cli.generate_folder")
+
+
+@pytest.mark.parametrize("module", CYCLEGAN_SLICE_MODULES)
+def test_cyclegan_slice_module_imports_without_jax(module):
+    """Each module of the CycleGAN slice, alone in a fresh interpreter, loads
+    no jax, flax, optax, JAX-package, yaml, msgpack or matplotlib module."""
+    name = f"{PKG}.{module}"
+    assert name in _modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({name!r})\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        f"      if m.split('.')[0] in {BANNED_MODULES!r})))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_sources_name_no_jax():
     banned = ("import jax", "from jax", "import flax", "from flax", "import optax",
               "from optax", "from gan_variant_research_tpu.",
@@ -154,6 +176,13 @@ def test_eval_console_script_resolves(pyproject):
     target = pyproject["project"]["scripts"]["gvr-torch-eval"]
     mod_name, _, attr = target.partition(":")
     assert mod_name == f"{PKG}.evalsuite.cli"
+    assert callable(getattr(importlib.import_module(mod_name), attr))
+
+
+def test_cyclegan_console_script_resolves(pyproject):
+    target = pyproject["project"]["scripts"]["gvr-torch-train-cyclegan"]
+    mod_name, _, attr = target.partition(":")
+    assert mod_name == f"{PKG}.cli.train_cyclegan"
     assert callable(getattr(importlib.import_module(mod_name), attr))
 
 

@@ -3,8 +3,10 @@ to the PyTorch port's functions (which take their draws as tensors).
 
 Each helper mirrors the ``jax.random`` calls of one JAX function:
 ``train_augment`` (data/augment.py), ``diff_augment`` (ops/diffaugment.py),
-``patch_nce_loss`` (losses/patchnce.py), and the whole CUT step
-(train/cut_trainer.py::_train_step, keys from ``step_keys``)."""
+``patch_nce_loss`` (losses/patchnce.py), the whole CUT step
+(train/cut_trainer.py::_train_step, keys from ``step_keys``), and the
+CycleGAN step's ``cyclegan_augment`` calls (train/cyclegan_trainer.py:250,
+data/augment.py:178-195)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +14,8 @@ import numpy as np
 import torch
 
 from gan_variant_research_tpu.core.prng import step_keys
-from gan_variant_research_tpu_torch.core.prng import StepDraws
-from gan_variant_research_tpu_torch.data.augment import AugmentDraws
+from gan_variant_research_tpu_torch.core.prng import CycleGANDraws, StepDraws
+from gan_variant_research_tpu_torch.data.augment import AugmentDraws, CropFlipDraws
 from gan_variant_research_tpu_torch.ops.diffaugment import DiffAugmentDraws, policy_ops
 
 STEP_KEY_NAMES = ("photo_aug", "monet_aug", "da_real", "da_fake", "da_g", "nce")
@@ -109,3 +111,20 @@ def step_draws(base_key, step, b, image_size, policy, fake_dtype, tap_hw, num_pa
         nce=nce_ids(keys["nce"], tap_hw, num_patches),
         **alphas,
     )
+
+
+def crop_flip_draws(key, b, h, w, crop):
+    """``cyclegan_augment`` of a (b, h, w, C) batch: the key split three
+    ways (row offsets, column offsets, flips)."""
+    k_i, k_j, k_flip = jax.random.split(key, 3)
+    return CropFlipDraws(off_i=_t(jax.random.randint(k_i, (b,), 0, h - crop + 1)),
+                         off_j=_t(jax.random.randint(k_j, (b,), 0, w - crop + 1)),
+                         flip=_t(jax.random.uniform(k_flip, (b, 1, 1, 1))) < 0.5)
+
+
+def cyclegan_draws(base_key, step, b, h, w, crop):
+    """Every draw of one JAX CycleGAN ``_train_step``: keys from
+    ``step_keys(base_key, step, ("aug_a", "aug_b"))``."""
+    keys = step_keys(base_key, step, ("aug_a", "aug_b"))
+    return CycleGANDraws(aug_a=crop_flip_draws(keys["aug_a"], b, h, w, crop),
+                         aug_b=crop_flip_draws(keys["aug_b"], b, h, w, crop))
