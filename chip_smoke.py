@@ -350,20 +350,31 @@ def trunk_conv(resblock, fn):
         resblock.reflect_conv3x3 = real
 
 
-def counts(resblock) -> tuple[int, int, int]:
-    return resblock.LAUNCHES, resblock.DX_LAUNCHES, resblock.DW_LAUNCHES
+def drop_counts(prefix: str) -> None:
+    """Set the launch counters under ``prefix`` to 0."""
+    from gan_variant_research_tpu_torch.core import trace
 
-
-def reset_counts(resblock) -> None:
-    resblock.LAUNCHES = resblock.DX_LAUNCHES = resblock.DW_LAUNCHES = 0
-    resblock.FWD_ROUTE_LAUNCHES = dict.fromkeys(resblock.FWD_ROUTES, 0)
-    resblock.DX_ROUTE_LAUNCHES = dict.fromkeys(resblock.DX_ROUTES, 0)
-    resblock.DW_ROUTE_LAUNCHES = dict.fromkeys(resblock.DW_ROUTES, 0)
+    for key in [k for k in trace.COUNTS if k.startswith(prefix)]:
+        del trace.COUNTS[key]
 
 
 def route_counts(resblock) -> dict:
-    return {"fwd": dict(resblock.FWD_ROUTE_LAUNCHES), "dx": dict(resblock.DX_ROUTE_LAUNCHES),
-            "dw": dict(resblock.DW_ROUTE_LAUNCHES)}
+    """{op: {route: launches}} of the trunk's forward, dx and dw, read from
+    ``trace.COUNTS``."""
+    from gan_variant_research_tpu_torch.core import trace
+
+    return {op: {r: trace.COUNTS.get(f"trunk.{op}.{r}", 0) for r in routes}
+            for op, routes in (("fwd", resblock.FWD_ROUTES), ("dx", resblock.DX_ROUTES),
+                               ("dw", resblock.DW_ROUTES))}
+
+
+def counts(resblock) -> tuple[int, int, int]:
+    """The trunk's forward, dx and dw launches over every route."""
+    return tuple(sum(by_route.values()) for by_route in route_counts(resblock).values())
+
+
+def reset_counts(resblock) -> None:
+    drop_counts("trunk.")
 
 
 def check_routes(resblock, before: dict, want: dict, what: str) -> None:
@@ -443,11 +454,11 @@ def phase_kernels(gen) -> dict:
     for shape, c_out, dtype in cases:
         x, w, b = conv_inputs(shape, c_out, dtype, case_gen(shape))
         route = resblock.fwd_route(shape, c_out, dtype)
-        before = dict(resblock.FWD_ROUTE_LAUNCHES)
+        before = route_counts(resblock)["fwd"]
         y = resblock.reflect_conv3x3(x, w, b)
         y2 = resblock.reflect_conv3x3(x, w, b)
         torch.cuda.synchronize()
-        check(resblock.FWD_ROUTE_LAUNCHES[route] - before[route] == 2,
+        check(route_counts(resblock)["fwd"][route] - before[route] == 2,
               f"reflect_conv3x3 {shape} {dtype}: not launched on {route}")
         r = resblock.reflect_conv3x3_reference(x, w, b)
         check(y.dtype == dtype and y.shape == r.shape, f"{shape} {dtype}: bad output")
@@ -493,11 +504,11 @@ def phase_kernels(gen) -> dict:
         dw_route = resblock.dw_route(shape, c_out, dtype)
         label = dict(shape="x".join(map(str, shape)), c_out=c_out, dtype=str(dtype).split(".")[-1])
 
-        before = dict(resblock.DX_ROUTE_LAUNCHES)
+        before = route_counts(resblock)["dx"]
         dx = resblock.reflect_conv3x3_dx(dy, w)
         dx2 = resblock.reflect_conv3x3_dx(dy, w)
         torch.cuda.synchronize()
-        check(resblock.DX_ROUTE_LAUNCHES[route] - before[route] == 2,
+        check(route_counts(resblock)["dx"][route] - before[route] == 2,
               f"dx {shape} {dtype}: not launched on {route}")
         r = resblock.reflect_conv3x3_dx_reference(dy, w)
         check(dx.dtype == dtype and dx.shape == x.shape, f"dx {shape} {dtype}: bad output")
@@ -516,11 +527,11 @@ def phase_kernels(gen) -> dict:
         check(bad == 0, f"reflect_conv3x3_dx {shape} {dtype}: {bad} values over tolerance")
         check(torch.equal(dx, dx2), f"reflect_conv3x3_dx {shape} {dtype}: two runs differ")
 
-        before = dict(resblock.DW_ROUTE_LAUNCHES)
+        before = route_counts(resblock)["dw"]
         dw = resblock.reflect_conv3x3_dw(x, dy)
         dw2 = resblock.reflect_conv3x3_dw(x, dy)
         torch.cuda.synchronize()
-        check(resblock.DW_ROUTE_LAUNCHES[dw_route] - before[dw_route] == 2,
+        check(route_counts(resblock)["dw"][dw_route] - before[dw_route] == 2,
               f"dw {shape} {dtype}: not launched on {dw_route}")
         r = resblock.reflect_conv3x3_dw_reference(x, dy)
         check(dw.dtype == torch.float32 and dw.shape == r.shape, f"dw {shape} {dtype}: bad output")
@@ -569,11 +580,11 @@ def phase_serve(rng):
     reset_counts(resblock)
     served = []
     for u8 in photos:
-        before, routes = resblock.LAUNCHES, route_counts(resblock)
+        before, routes = counts(resblock)[0], route_counts(resblock)
         out = stylize_batch(net, u8)
         torch.cuda.synchronize()
-        check(resblock.LAUNCHES - before == TRUNK_CONVS,
-              f"{resblock.LAUNCHES - before} trunk launches in a batch, want {TRUNK_CONVS}")
+        fwd = counts(resblock)[0] - before
+        check(fwd == TRUNK_CONVS, f"{fwd} trunk launches in a batch, want {TRUNK_CONVS}")
         check_routes(resblock, routes, {"fwd": TRUNK_CONVS, "dx": 0, "dw": 0}, "flagship batch")
         served.append(out)
     launches = counts(resblock)
@@ -870,12 +881,27 @@ def attention_inputs(shape, dtype, gen):
     return q, k, v, do
 
 
+def attn_route_counts(sa) -> dict:
+    """{route: attention forward launches}, the einsum core's calls under
+    ``einsum``, read from ``trace.COUNTS``."""
+    from gan_variant_research_tpu_torch.core import trace
+
+    return {r: trace.COUNTS.get(f"attn.fwd.{r}", 0) for r in sa.ATTN_ROUTES}
+
+
 def attn_counts(sa) -> tuple[int, int, int]:
-    return sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES
+    """The attention kernels' forward (every kernel route), dK/dV and dQ
+    launches."""
+    from gan_variant_research_tpu_torch.core import trace
+
+    fwd = attn_route_counts(sa)
+    return (sum(fwd[r] for r in sa.KERNEL_ROUTES), trace.COUNTS.get("attn.dkv", 0),
+            trace.COUNTS.get("attn.dq", 0))
 
 
 def reset_attn_counts(sa) -> None:
-    sa.ATTN_LAUNCHES = sa.ATTN_DKV_LAUNCHES = sa.ATTN_DQ_LAUNCHES = 0
+    """Every attention counter to 0, the routes' and the einsum core's too."""
+    drop_counts("attn.")
 
 
 @contextlib.contextmanager
@@ -1178,10 +1204,10 @@ def phase_serve_variant(rng):
     reset_attn_counts(sa)
     served = []
     for u8 in photos:
-        before, routes = (resblock.LAUNCHES, *attn_counts(sa)), route_counts(resblock)
+        before, routes = (counts(resblock)[0], *attn_counts(sa)), route_counts(resblock)
         out = stylize_batch(net, u8)
         torch.cuda.synchronize()
-        step = tuple(a - b for a, b in zip((resblock.LAUNCHES, *attn_counts(sa)), before))
+        step = tuple(a - b for a, b in zip((counts(resblock)[0], *attn_counts(sa)), before))
         check_routes(resblock, routes, {"fwd": TRUNK_CONVS, "dx": 0, "dw": 0}, "variant batch")
         check(step == (TRUNK_CONVS, ATTN_BLOCKS, 0, 0),
               f"a variant batch launched {step} (trunk, attention fwd/dkv/dq), "
@@ -1589,13 +1615,12 @@ def phase_attention_widths(gen, rng) -> dict:
         net = net.to("cuda").eval()
         photos = u8()
         torch.cuda.synchronize()
-        sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
         reset_attn_counts(sa)
         out = stylize_batch(net, photos)
         torch.cuda.synchronize()
         want = (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: ATTN_BLOCKS * calls}),
                 (ATTN_BLOCKS * per_call[0], 0, 0))
-        served = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
+        served = (attn_route_counts(sa), attn_counts(sa))
         check(served == want, f"ngf {ngf}: a served batch launched {served}, want {want}")
         check(out.dtype == torch.uint8 and tuple(out.shape) == (b, s, s, 3)
               and float(out.float().std()) > 1.0, f"ngf {ngf}: served {out.dtype} "
@@ -1613,14 +1638,13 @@ def phase_attention_widths(gen, rng) -> dict:
                                        device="cuda")
         monets = u8()
         torch.cuda.synchronize()
-        sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
         reset_attn_counts(sa)
         state, losses = trainer.train_step(state, photos, monets, step=1)
         torch.cuda.synchronize()
         # 3 G passes, each with its backward
         want_step = (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: 3 * ATTN_BLOCKS * calls}),
                      tuple(3 * ATTN_BLOCKS * x for x in per_call))
-        stepped = (dict(sa.ATTN_ROUTE_LAUNCHES), attn_counts(sa))
+        stepped = (attn_route_counts(sa), attn_counts(sa))
         check(stepped == want_step, f"ngf {ngf}: a train step launched {stepped}, "
               f"want {want_step}")
         vals = {k: float(v) for k, v in losses.items()}
@@ -2047,7 +2071,6 @@ def phase_eval() -> dict:
 
     reset_counts(resblock)
     reset_attn_counts(sa)
-    sa.ATTN_ROUTE_LAUNCHES = dict.fromkeys(sa.ATTN_ROUTES, 0)
     runs = []
     for _ in range(2):
         stats = {}
@@ -2055,7 +2078,7 @@ def phase_eval() -> dict:
         report = run_evaluation(copy.deepcopy(cfg), device="cuda", stats=stats)
         torch.cuda.synchronize()
         runs.append((report, stats, time.perf_counter() - t))
-    launched = (counts(resblock), attn_counts(sa), dict(sa.ATTN_ROUTE_LAUNCHES))
+    launched = (counts(resblock), attn_counts(sa), attn_route_counts(sa))
     check(launched == ((0, 0, 0), (0, 0, 0), dict.fromkeys(sa.ATTN_ROUTES, 0)),
           f"eval launched hand-written kernels: {launched}")
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.layers import Conv2d
 from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as attention_core
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm, uniform_fan_in_
@@ -41,11 +42,11 @@ def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     summed in float32, the softmax in float32, the weights cast to v's
     dtype, then the weighted sum in that dtype. The (B, n, n) map is
     materialised, as XLA does there; on the card its call is counted under
-    ``ATTN_ROUTE_LAUNCHES["einsum"]`` (no hand-written kernel runs)."""
+    ``attn.fwd.einsum`` (no hand-written kernel runs)."""
     logits = torch.matmul(q.float(), k.float().transpose(1, 2))
     attn = torch.softmax(logits, dim=-1).to(v.dtype)
     if v.device.type == "cuda":
-        attention_core.ATTN_ROUTE_LAUNCHES["einsum"] += 1
+        trace.count("attn.fwd.einsum")
     return torch.matmul(attn, v)
 
 

@@ -20,10 +20,10 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
   -> residual add, NHWC.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
-versions serve CPU tensors. ``LAUNCHES``, ``DX_LAUNCHES`` and
-``DW_LAUNCHES`` count the kernel launches, ``FWD_ROUTE_LAUNCHES``,
-``DX_ROUTE_LAUNCHES`` and ``DW_ROUTE_LAUNCHES`` the forward, ``dx`` and
-``dw`` launches by route.
+versions serve CPU tensors. Each launch is counted in ``core/trace.py``'s
+``COUNTS`` under ``trunk.fwd.<route>``, ``trunk.dx.<route>`` or
+``trunk.dw.<route>``, and its wrapper's host side is the span
+``trunk.fwd``, ``trunk.dx`` or ``trunk.dw``.
 """
 
 from __future__ import annotations
@@ -35,22 +35,16 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
-
-LAUNCHES = 0
-DX_LAUNCHES = 0
-DW_LAUNCHES = 0
 
 # The forward kernel's routes, in the order of its ``route`` argument:
 # float32 on FMA, bf16 on wgmma + TMA.
 FWD_ROUTES = ("f32_fma", "bf16_wgmma")
-FWD_ROUTE_LAUNCHES = dict.fromkeys(FWD_ROUTES, 0)
 # The dx kernel's routes, likewise.
 DX_ROUTES = ("f32_fma", "bf16_wgmma")
-DX_ROUTE_LAUNCHES = dict.fromkeys(DX_ROUTES, 0)
 # The dw kernel's routes, likewise.
 DW_ROUTES = ("f32_fma", "bf16_wgmma")
-DW_ROUTE_LAUNCHES = dict.fromkeys(DW_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Z_MAX = 65535
@@ -192,28 +186,27 @@ def reflect_conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Ten
 # kernel wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor
 
 def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
-    _check_cuda(x)
-    c_out = w.shape[3]
-    route = fwd_route(x.shape, c_out, x.dtype)
-    w = w.to(x.dtype).contiguous()
-    b = b.float().contiguous()
-    if route == "bf16_wgmma":
-        # channels of 8; the tensor maps need 16-byte aligned bases
-        x, w, b = pad_fwd_channels(x, w, b)
-        x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
-    n, h, width, c_in_k = x.shape
-    c_out_k = w.shape[3]
-    y = torch.empty((n, h, width, c_out_k), dtype=x.dtype, device=x.device)
-    fn = _forward_fn()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 n, h, width, c_in_k, c_out_k, FWD_ROUTES.index(route),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"reflect_conv3x3 ({route})")
-    LAUNCHES += 1
-    FWD_ROUTE_LAUNCHES[route] += 1
-    return y if c_out_k == c_out else y[..., :c_out].contiguous()
+    with trace.span("trunk.fwd"):
+        _check_cuda(x)
+        c_out = w.shape[3]
+        route = fwd_route(x.shape, c_out, x.dtype)
+        w = w.to(x.dtype).contiguous()
+        b = b.float().contiguous()
+        if route == "bf16_wgmma":
+            # channels of 8; the tensor maps need 16-byte aligned bases
+            x, w, b = pad_fwd_channels(x, w, b)
+            x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+        n, h, width, c_in_k = x.shape
+        c_out_k = w.shape[3]
+        y = torch.empty((n, h, width, c_out_k), dtype=x.dtype, device=x.device)
+        fn = _forward_fn()
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     n, h, width, c_in_k, c_out_k, FWD_ROUTES.index(route),
+                     torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, f"reflect_conv3x3 ({route})")
+        trace.count(f"trunk.fwd.{route}")
+        return y if c_out_k == c_out else y[..., :c_out].contiguous()
 
 
 def _route(dtype: torch.dtype, what: str) -> str:
@@ -277,37 +270,40 @@ def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dy's dtype. On CUDA it launches ``csrc/reflect_conv3x3_dx.cu`` on the
     current stream, on the route ``dx_route`` picks; on the CPU it is
     ``reflect_conv3x3_dx_reference``."""
-    global DX_LAUNCHES
     _check_dx(dy, w)
     if dy.device.type == "cpu":
         return reflect_conv3x3_dx_reference(dy, w)
-    _check_cuda(dy)
-    n, h, width, c_out = dy.shape
-    c_in = w.shape[2]
-    route = dx_route(dy.shape, c_in, dy.dtype)
-    if route == "bf16_wgmma":
-        # (3, 3, Cin, Cout), channels of 8; the tensor maps need 16-byte
-        # aligned bases
-        dy, wk = pad_dx_channels(dy, w.to(dy.dtype))
-        dy, wk = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (dy, wk.contiguous()))
-        c_in_k, c_out = wk.shape[2], wk.shape[3]
-    else:
-        wk = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()      # (3, 3, Cout, Cin)
-        c_in_k = c_in
-    # float32 scratch: the padded frame of the input gradient, then (wgmma
-    # route) the interior sums of the pixels the fold reaches
-    rows = 2 * (width + 2) + 2 * h + (2 * width + 2 * h if route == "bf16_wgmma" else 0)
-    frame = torch.empty((n, rows, c_in_k), dtype=torch.float32, device=dy.device)
-    dx = torch.empty((n, h, width, c_in_k), dtype=dy.dtype, device=dy.device)
-    fn = _dx_fn()
-    with torch.cuda.device(dy.device):
-        err = fn(dy.data_ptr(), wk.data_ptr(), frame.data_ptr(), dx.data_ptr(),
-                 n, h, width, c_in_k, c_out, DX_ROUTES.index(route),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"reflect_conv3x3_dx ({route})")
-    DX_LAUNCHES += 1
-    DX_ROUTE_LAUNCHES[route] += 1
-    return dx if c_in_k == c_in else dx[..., :c_in].contiguous()
+    return _launch_dx(dy, w)
+
+
+def _launch_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    with trace.span("trunk.dx"):
+        _check_cuda(dy)
+        n, h, width, c_out = dy.shape
+        c_in = w.shape[2]
+        route = dx_route(dy.shape, c_in, dy.dtype)
+        if route == "bf16_wgmma":
+            # (3, 3, Cin, Cout), channels of 8; the tensor maps need 16-byte
+            # aligned bases
+            dy, wk = pad_dx_channels(dy, w.to(dy.dtype))
+            dy, wk = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (dy, wk.contiguous()))
+            c_in_k, c_out = wk.shape[2], wk.shape[3]
+        else:
+            wk = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()      # (3, 3, Cout, Cin)
+            c_in_k = c_in
+        # float32 scratch: the padded frame of the input gradient, then (wgmma
+        # route) the interior sums of the pixels the fold reaches
+        rows = 2 * (width + 2) + 2 * h + (2 * width + 2 * h if route == "bf16_wgmma" else 0)
+        frame = torch.empty((n, rows, c_in_k), dtype=torch.float32, device=dy.device)
+        dx = torch.empty((n, h, width, c_in_k), dtype=dy.dtype, device=dy.device)
+        fn = _dx_fn()
+        with torch.cuda.device(dy.device):
+            err = fn(dy.data_ptr(), wk.data_ptr(), frame.data_ptr(), dx.data_ptr(),
+                     n, h, width, c_in_k, c_out, DX_ROUTES.index(route),
+                     torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, f"reflect_conv3x3_dx ({route})")
+        trace.count(f"trunk.dx.{route}")
+        return dx if c_in_k == c_in else dx[..., :c_in].contiguous()
 
 
 def dw_route(x_shape, c_out: int, dtype: torch.dtype) -> str:
@@ -348,35 +344,38 @@ def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     same bits from run to run. On CUDA it launches
     ``csrc/reflect_conv3x3_dw.cu`` on the current stream, on the route
     ``dw_route`` picks; on the CPU it is ``reflect_conv3x3_dw_reference``."""
-    global DW_LAUNCHES
     _check_dw(x, dy)
     if x.device.type == "cpu":
         return reflect_conv3x3_dw_reference(x, dy)
-    _check_cuda(x)
-    _check_cuda(dy)
-    c_in, c_out = x.shape[3], dy.shape[3]
-    route = dw_route(x.shape, c_out, x.dtype)
-    if route == "bf16_wgmma":
-        # channels of 8; the tensor maps need 16-byte aligned bases
-        x, dy = pad_dw_channels(x, dy)
-        x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
-    n, h, width, c_in_k = x.shape
-    c_out_k = dy.shape[3]
-    splits = dw_splits(x.shape, c_out_k,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count, route)
-    part = torch.empty((splits, 3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
-    fn = _dw_fn()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                 n, h, width, c_in_k, c_out_k, splits, DW_ROUTES.index(route),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"reflect_conv3x3_dw ({route})")
-    DW_LAUNCHES += 1
-    DW_ROUTE_LAUNCHES[route] += 1
-    if (c_in_k, c_out_k) == (c_in, c_out):
-        return dw
-    return dw[:, :, :c_in, :c_out].contiguous()
+    return _launch_dw(x, dy)
+
+
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    with trace.span("trunk.dw"):
+        _check_cuda(x)
+        _check_cuda(dy)
+        c_in, c_out = x.shape[3], dy.shape[3]
+        route = dw_route(x.shape, c_out, x.dtype)
+        if route == "bf16_wgmma":
+            # channels of 8; the tensor maps need 16-byte aligned bases
+            x, dy = pad_dw_channels(x, dy)
+            x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
+        n, h, width, c_in_k = x.shape
+        c_out_k = dy.shape[3]
+        splits = dw_splits(x.shape, c_out_k,
+                           torch.cuda.get_device_properties(x.device).multi_processor_count, route)
+        part = torch.empty((splits, 3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
+        dw = torch.empty((3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
+        fn = _dw_fn()
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                     n, h, width, c_in_k, c_out_k, splits, DW_ROUTES.index(route),
+                     torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, f"reflect_conv3x3_dw ({route})")
+        trace.count(f"trunk.dw.{route}")
+        if (c_in_k, c_out_k) == (c_in, c_out):
+            return dw
+        return dw[:, :, :c_in, :c_out].contiguous()
 
 
 class _ReflectConv3x3(torch.autograd.Function):

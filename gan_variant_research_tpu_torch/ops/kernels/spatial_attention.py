@@ -48,11 +48,11 @@ Past d_qk 128 the JAX package runs its einsum core, not the flash kernel;
 ``models/attention.py::einsum_attention``: ``spatial_attention`` refuses
 it. Nothing the JAX package runs is refused. A CUDA tensor launches the
 kernel (built at first use) or raises; the plain versions serve CPU
-tensors, through the same routes. ``ATTN_LAUNCHES``, ``ATTN_DKV_LAUNCHES``
-and ``ATTN_DQ_LAUNCHES`` count the kernel launches, ``ATTN_ROUTE_LAUNCHES``
-the forward launches by the route the caller names (a raw call is
-``direct``), both where the forward launches, and the einsum core's calls
-on the card under ``einsum``.
+tensors, through the same routes. ``core/trace.py``'s ``COUNTS`` counts
+the launches where they happen: the forward's under ``attn.fwd.<route>``,
+by the route the caller names (a raw call is ``direct``; the einsum core's
+calls on the card are ``attn.fwd.einsum``), the backward's under
+``attn.dkv`` and ``attn.dq``.
 
 ``spatial_attention_dkv_contract`` and ``spatial_attention_dq_contract`` are
 the backward as the library kernel rounds it (p and ds in the inputs' dtype,
@@ -69,12 +69,10 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-ATTN_LAUNCHES = 0
-ATTN_DKV_LAUNCHES = 0
-ATTN_DQ_LAUNCHES = 0
+from gan_variant_research_tpu_torch.core import trace
+
 ATTN_ROUTES = ("direct", "padded", "split", "einsum")
 KERNEL_ROUTES = ATTN_ROUTES[:3]
-ATTN_ROUTE_LAUNCHES = dict.fromkeys(ATTN_ROUTES, 0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DQK, _MAX_DV, _MAX_BATCH = 128, 256, 65535
@@ -234,7 +232,6 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(o in q's dtype, lse (B, n) float32). On CUDA it launches
     ``csrc/spatial_attention.cu`` on the current stream and counts the
     launch under ``route`` (one of ``KERNEL_ROUTES``)."""
-    global ATTN_LAUNCHES
     _check(q, k, v)
     if route not in KERNEL_ROUTES:
         raise ValueError(f"route must be one of {KERNEL_ROUTES}, got {route!r}")
@@ -250,8 +247,7 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "spatial_attention")
-    ATTN_LAUNCHES += 1
-    ATTN_ROUTE_LAUNCHES[route] += 1
+    trace.count(f"attn.fwd.{route}")
     return o, lse
 
 
@@ -271,7 +267,6 @@ def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Ten
     """(dk, dv) in the inputs' dtype, the same bits from run to run. On CUDA
     it launches ``csrc/spatial_attention_dkv.cu`` (d_v up to
     ``backward_width(d_qk)``)."""
-    global ATTN_DKV_LAUNCHES
     _check_bwd(q, k, v, do, lse, di)
     if q.device.type == "cpu":
         return spatial_attention_dkv_reference(q, k, v, do, lse, di)
@@ -285,7 +280,7 @@ def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Ten
                  di.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, n, dqk, dv,
                  _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "spatial_attention_dkv")
-    ATTN_DKV_LAUNCHES += 1
+    trace.count("attn.dkv")
     return dk, dv_out
 
 
@@ -293,7 +288,6 @@ def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
     """dq in the inputs' dtype, the same bits from run to run. On CUDA it
     launches ``csrc/spatial_attention_dq.cu`` (d_v up to
     ``backward_width(d_qk)``)."""
-    global ATTN_DQ_LAUNCHES
     _check_bwd(q, k, v, do, lse, di)
     if q.device.type == "cpu":
         return spatial_attention_dq_reference(q, k, v, do, lse, di)
@@ -306,7 +300,7 @@ def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
                  di.data_ptr(), dq.data_ptr(), b, n, dqk, v.shape[2],
                  _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "spatial_attention_dq")
-    ATTN_DQ_LAUNCHES += 1
+    trace.count("attn.dq")
     return dq
 
 

@@ -50,6 +50,7 @@ from gan_variant_research_tpu_torch.convert import (
     jax_tree_from_state_dict,
 )
 from gan_variant_research_tpu_torch.core import config as cfg_mod
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.core.precision import FP32_POLICY, Policy, policy_from_config
 from gan_variant_research_tpu_torch.core.prng import StepDraws, jax_base_key, sample_step
 from gan_variant_research_tpu_torch.data.augment import train_augment
@@ -320,90 +321,101 @@ class CUTTrainer:
         """One training step on uint8 NHWC batches on the state's device.
         ``step`` defaults to ``state.step``; ``draws=None`` samples them from
         ``state.rng``. Returns (state, losses) with the losses as float32
-        0-d tensors under ``LOSS_KEYS``; the state is updated in place."""
+        0-d tensors under ``LOSS_KEYS``; the state is updated in place. Its
+        phases are the spans ``cut.<phase>`` under ``cut.step``
+        (``core/trace.py``); the G update and the EMA sit in the root."""
         step = state.step if step is None else int(step)
-        do_r1, do_identity = self.step_flags(step)
-        batch = photos_u8.shape[0]
-        if draws is None:
-            draws = self.sample_draws(state.rng, batch)
-        g_params, d_params = state.g_params, state.d_params
-        zero = torch.zeros((), dtype=torch.float32, device=photos_u8.device)
+        with trace.span("cut.step", step=step):
+            do_r1, do_identity = self.step_flags(step)
+            batch = photos_u8.shape[0]
+            if draws is None:
+                with trace.span("cut.draws"):
+                    draws = self.sample_draws(state.rng, batch)
+            g_params, d_params = state.g_params, state.d_params
+            zero = torch.zeros((), dtype=torch.float32, device=photos_u8.device)
 
-        photos = train_augment(photos_u8, self.image_size, draws.photo_aug)
-        monets = train_augment(monets_u8, self.image_size, draws.monet_aug)
-        identity_weight = self.identity_weight_at(step)
-        real = photos if self.d_real_domain == "photo" else monets
+            with trace.span("cut.augment"):
+                photos = train_augment(photos_u8, self.image_size, draws.photo_aug)
+                monets = train_augment(monets_u8, self.image_size, draws.monet_aug)
+            identity_weight = self.identity_weight_at(step)
+            real = photos if self.d_real_domain == "photo" else monets
 
-        # one G forward serves the D step, the adversarial head and both
-        # sides of PatchNCE
-        if self.nce_w > 0:
-            fake, src_feats = functional_call(
-                self.generator, g_params, (photos,),
-                {"extract": self.nce_layers, "style_alpha": draws.style_fwd})
-            _, tgt_feats = functional_call(
-                self.generator, g_params, (fake,),
-                {"extract": self.nce_layers, "taps_only": True, "style_alpha": draws.style_nce})
-        else:
-            fake = functional_call(self.generator, g_params, (photos,),
-                                   {"style_alpha": draws.style_fwd})
-            src_feats = tgt_feats = []
+            # one G forward serves the D step, the adversarial head and both
+            # sides of PatchNCE
+            with trace.span("cut.g_forward"):
+                if self.nce_w > 0:
+                    fake, src_feats = functional_call(
+                        self.generator, g_params, (photos,),
+                        {"extract": self.nce_layers, "style_alpha": draws.style_fwd})
+                    _, tgt_feats = functional_call(
+                        self.generator, g_params, (fake,),
+                        {"extract": self.nce_layers, "taps_only": True,
+                         "style_alpha": draws.style_nce})
+                else:
+                    fake = functional_call(self.generator, g_params, (photos,),
+                                           {"style_alpha": draws.style_fwd})
+                    src_feats = tgt_feats = []
 
-        # ---------------- D step ----------------
-        real_aug = self._aug(real, draws.da_real)
-        fake_aug = self._aug(fake.detach(), draws.da_fake)
-        preds = self._d(d_params, torch.cat([real_aug.float(), fake_aug.float()]))
-        d_loss = discriminator_hinge_loss([p[:batch] for p in preds],
-                                          [p[batch:] for p in preds])
-        d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
-        opt_d = self.opt_d.step(d_params, dict(zip(d_params, d_grads)), state.opt_d)
+            with trace.span("cut.d_step"):
+                real_aug = self._aug(real, draws.da_real)
+                fake_aug = self._aug(fake.detach(), draws.da_fake)
+                preds = self._d(d_params, torch.cat([real_aug.float(), fake_aug.float()]))
+                d_loss = discriminator_hinge_loss([p[:batch] for p in preds],
+                                                  [p[batch:] for p in preds])
+                d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+                opt_d = self.opt_d.step(d_params, dict(zip(d_params, d_grads)), state.opt_d)
 
-        # ---------------- lazy R1: a second D step ----------------
-        if do_r1:
-            real32 = real.detach().float().requires_grad_()
-            d_sum = sum(p.float().sum() for p in self._d(d_params, real32, fp32=True))
-            (g_img,) = torch.autograd.grad(d_sum, real32, create_graph=True)
-            r1 = g_img.square().sum(dim=(1, 2, 3)).mean()
-            # conv_out's bias does not reach the image gradient: its grad is 0
-            r1_grads = torch.autograd.grad(r1 * (self.r1_gamma * self.r1_every),
-                                           list(d_params.values()), materialize_grads=True)
-            opt_d = self.opt_d.step(d_params, dict(zip(d_params, r1_grads)), opt_d)
-            r1 = r1.detach()
-        else:
-            r1 = zero
+            # lazy R1: a second D step
+            if do_r1:
+                with trace.span("cut.r1"):
+                    real32 = real.detach().float().requires_grad_()
+                    d_sum = sum(p.float().sum() for p in self._d(d_params, real32, fp32=True))
+                    (g_img,) = torch.autograd.grad(d_sum, real32, create_graph=True)
+                    r1 = g_img.square().sum(dim=(1, 2, 3)).mean()
+                    # conv_out's bias does not reach the image gradient: its grad is 0
+                    r1_grads = torch.autograd.grad(r1 * (self.r1_gamma * self.r1_every),
+                                                   list(d_params.values()),
+                                                   materialize_grads=True)
+                    opt_d = self.opt_d.step(d_params, dict(zip(d_params, r1_grads)), opt_d)
+                    r1 = r1.detach()
+            else:
+                r1 = zero
 
-        # ---------------- G head, against the updated D ----------------
-        g_adv = generator_hinge_loss(self._d(d_params, self._aug(fake, draws.da_g)))
-        nce = (patch_nce_loss(src_feats, tgt_feats, draws.nce, self.temperature)
-               if self.nce_w > 0 else zero)
-        head = self.adv_w * g_adv + self.nce_w * nce
-        # into G's parameters only: nothing lands in D's gradients
-        g_grads = list(torch.autograd.grad(head, list(g_params.values())))
+            # the G head, against the updated D
+            with trace.span("cut.g_head"):
+                g_adv = generator_hinge_loss(self._d(d_params, self._aug(fake, draws.da_g)))
+                nce = (patch_nce_loss(src_feats, tgt_feats, draws.nce, self.temperature)
+                       if self.nce_w > 0 else zero)
+                head = self.adv_w * g_adv + self.nce_w * nce
+                # into G's parameters only: nothing lands in D's gradients
+                g_grads = list(torch.autograd.grad(head, list(g_params.values())))
 
-        if do_identity:
-            idt_gen = self.generator_f32 if self.identity_fp32 else self.generator
-            rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),),
-                                  {"style_alpha": draws.style_idt})
-            idt = identity_loss(rec, monets)
-            idt_grads = torch.autograd.grad(idt, list(g_params.values()))
-            g_grads = [g + identity_weight * ig for g, ig in zip(g_grads, idt_grads)]
-            idt = idt.detach()
-        else:
-            idt = zero
+            if do_identity:
+                with trace.span("cut.identity"):
+                    idt_gen = self.generator_f32 if self.identity_fp32 else self.generator
+                    rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),),
+                                          {"style_alpha": draws.style_idt})
+                    idt = identity_loss(rec, monets)
+                    idt_grads = torch.autograd.grad(idt, list(g_params.values()))
+                    g_grads = [g + identity_weight * ig for g, ig in zip(g_grads, idt_grads)]
+                    idt = idt.detach()
+            else:
+                idt = zero
 
-        opt_g = self.opt_g.step(g_params, dict(zip(g_params, g_grads)), state.opt_g)
-        ema_update(state.ema, g_params, self.ema_decay)
+            opt_g = self.opt_g.step(g_params, dict(zip(g_params, g_grads)), state.opt_g)
+            ema_update(state.ema, g_params, self.ema_decay)
 
-        state.step, state.opt_g, state.opt_d = step + 1, opt_g, opt_d
-        losses = {
-            "d_loss": d_loss.detach(),
-            "g_loss": (head + identity_weight * idt).detach(),
-            "g_adv": g_adv.detach(),
-            "nce": nce.detach(),
-            "identity": idt,
-            "r1": r1,
-            "identity_weight": torch.full_like(zero, identity_weight),
-            "featmatch": zero,
-            "palette": zero,
-            "repulsion": zero,
-        }
+            state.step, state.opt_g, state.opt_d = step + 1, opt_g, opt_d
+            losses = {
+                "d_loss": d_loss.detach(),
+                "g_loss": (head + identity_weight * idt).detach(),
+                "g_adv": g_adv.detach(),
+                "nce": nce.detach(),
+                "identity": idt,
+                "r1": r1,
+                "identity_weight": torch.full_like(zero, identity_weight),
+                "featmatch": zero,
+                "palette": zero,
+                "repulsion": zero,
+            }
         return state, losses

@@ -45,6 +45,7 @@ from gan_variant_research_tpu_torch.convert import (
     jax_tree_from_state_dict,
     patchgan_state_dict_from_jax,
 )
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.core.precision import Policy, policy_from_config
 from gan_variant_research_tpu_torch.core.prng import CycleGANDraws, jax_base_key, sample_cyclegan
 from gan_variant_research_tpu_torch.data.augment import cyclegan_augment
@@ -275,25 +276,34 @@ class CycleGANTrainer:
         """One step on uint8 NHWC batches at the load size, on the state's
         device; ``draws=None`` samples them from ``state.rng``. Returns
         (state, losses) with the losses as float32 0-d tensors under
-        ``LOSS_KEYS``; the state is updated in place."""
-        if draws is None:
-            draws = self.sample_draws(state.rng, a_u8.shape)
-        real_A = cyclegan_augment(a_u8, self.crop, draws.aug_a)
-        real_B = cyclegan_augment(b_u8, self.crop, draws.aug_b)
+        ``LOSS_KEYS``; the state is updated in place. Its phases are the
+        spans ``cyclegan.<phase>`` under ``cyclegan.step``
+        (``core/trace.py``)."""
+        with trace.span("cyclegan.step", step=state.step):
+            if draws is None:
+                with trace.span("cyclegan.draws"):
+                    draws = self.sample_draws(state.rng, a_u8.shape)
+            with trace.span("cyclegan.augment"):
+                real_A = cyclegan_augment(a_u8, self.crop, draws.aug_a)
+                real_B = cyclegan_augment(b_u8, self.crop, draws.aug_b)
 
-        g_params = state.g_params
-        total, (fake_A, fake_B, adv, cyc, idt) = self.g_loss(
-            g_params, state.da_params, state.db_params, real_A, real_B)
-        g_grads = torch.autograd.grad(total, list(g_params.values()))
-        opt_g = self.opt_g.step(g_params, dict(zip(g_params, g_grads)), state.opt_g)
+            g_params = state.g_params
+            with trace.span("cyclegan.g_loss"):
+                total, (fake_A, fake_B, adv, cyc, idt) = self.g_loss(
+                    g_params, state.da_params, state.db_params, real_A, real_B)
+            with trace.span("cyclegan.g_backward"):
+                g_grads = torch.autograd.grad(total, list(g_params.values()))
+                opt_g = self.opt_g.step(g_params, dict(zip(g_params, g_grads)), state.opt_g)
 
-        loss_da, opt_da = self._d_step(self.opt_da, state.da_params, state.opt_da,
-                                       real_A, fake_A.detach())
-        loss_db, opt_db = self._d_step(self.opt_db, state.db_params, state.opt_db,
-                                       real_B, fake_B.detach())
+            with trace.span("cyclegan.d_a"):
+                loss_da, opt_da = self._d_step(self.opt_da, state.da_params, state.opt_da,
+                                               real_A, fake_A.detach())
+            with trace.span("cyclegan.d_b"):
+                loss_db, opt_db = self._d_step(self.opt_db, state.db_params, state.opt_db,
+                                               real_B, fake_B.detach())
 
-        state.step += 1
-        state.opt_g, state.opt_da, state.opt_db = opt_g, opt_da, opt_db
-        losses = {"G": total.detach(), "D_A": loss_da, "D_B": loss_db, "adv": adv.detach(),
-                  "cycle": cyc.detach(), "idt": idt.detach()}
+            state.step += 1
+            state.opt_g, state.opt_da, state.opt_db = opt_g, opt_da, opt_db
+            losses = {"G": total.detach(), "D_A": loss_da, "D_B": loss_db, "adv": adv.detach(),
+                      "cycle": cyc.detach(), "idt": idt.detach()}
         return state, losses

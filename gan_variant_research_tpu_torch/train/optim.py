@@ -12,7 +12,8 @@ and ``nu`` per parameter, as optax's ``ScaleByAdamState`` does.
 The clip is optax's rule: the gradients are scaled by ``max_norm / norm``
 only when ``norm >= max_norm``, with no epsilon (``torch.nn.utils.
 clip_grad_norm_`` divides by ``norm + 1e-6``). It is decided on the device,
-without a host sync.
+without a host sync. ``Optimizer.step`` runs the spans ``optim.clip`` and
+``optim.adam`` (``core/trace.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from gan_variant_research_tpu_torch.core import config as cfg_mod
+from gan_variant_research_tpu_torch.core import trace
 
 
 @dataclasses.dataclass
@@ -81,18 +83,20 @@ class Optimizer:
         ``params`` in place. Returns the new state (the moments are updated
         in place)."""
         if self.max_norm is not None:
-            grads = clip_by_global_norm(grads, self.max_norm)
-        count = state.count + 1
-        lr = self.learning_rate(state.count)
-        c1 = 1.0 - self.b1 ** count
-        c2 = 1.0 - self.b2 ** count
-        for k, p in params.items():
-            g = grads[k].float()
-            mu, nu = state.mu[k], state.nu[k]
-            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
-            nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            p.add_((-lr * update).to(p.dtype))
+            with trace.span("optim.clip"):
+                grads = clip_by_global_norm(grads, self.max_norm)
+        with trace.span("optim.adam"):
+            count = state.count + 1
+            lr = self.learning_rate(state.count)
+            c1 = 1.0 - self.b1 ** count
+            c2 = 1.0 - self.b2 ** count
+            for k, p in params.items():
+                g = grads[k].float()
+                mu, nu = state.mu[k], state.nu[k]
+                mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+                nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
+                update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+                p.add_((-lr * update).to(p.dtype))
         return AdamState(count, state.mu, state.nu)
 
     def state_dict(self, state: AdamState, tree: Callable[[dict], dict]) -> dict:

@@ -20,6 +20,7 @@ from gan_variant_research_tpu.models.attention import (
     flash_spatial_attention,
 )
 from gan_variant_research_tpu_torch.convert import _dense_to_linear, _hwio_to_oihw
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.core.precision import FP32_POLICY
 from gan_variant_research_tpu_torch.models.attention import (
     ChannelAttention,
@@ -314,7 +315,7 @@ def test_function_on_the_cpu_is_autograd_of_the_plain_version():
 
 def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     q, k, v, g = (torch.from_numpy(a) for a in _qkv((2, 33, 8, 16), seed=3))
-    before = (sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES)
+    before = dict(trace.COUNTS)
     o, lse = sa.spatial_attention_forward(q, k, v)
     torch.testing.assert_close(o, sa.spatial_attention_reference(q, k, v), rtol=0, atol=0)
     torch.testing.assert_close(lse, torch.logsumexp(q @ k.transpose(1, 2), -1))
@@ -325,7 +326,7 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     want = torch.autograd.grad(sa.spatial_attention_reference(*leaves), leaves, g)
     for a, b in zip((dq, dk, dv), want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (sa.ATTN_LAUNCHES, sa.ATTN_DKV_LAUNCHES, sa.ATTN_DQ_LAUNCHES) == before
+    assert trace.COUNTS == before
 
 
 @pytest.mark.parametrize("d_qk, d_v, want", [
@@ -372,7 +373,7 @@ def test_routed_core_matches_the_plain_core(shape):
     unsplit inputs, float32, forward and gradients; on the CPU nothing is
     counted as launched."""
     q, k, v, g = _qkv(shape, seed=4)
-    before = dict(sa.ATTN_ROUTE_LAUNCHES)
+    before = dict(trace.COUNTS)
     got, got_grads = _port_grads(sa.spatial_attention, q, k, v, g)
     want, want_grads = _port_grads(sa.spatial_attention_reference, q, k, v, g)
     assert got.shape == want.shape == shape[:2] + shape[3:]
@@ -382,7 +383,7 @@ def test_routed_core_matches_the_plain_core(shape):
         # another order
         assert a.shape == b.shape
         assert _rel_to_max(a, b) <= 1e-5, name
-    assert sa.ATTN_ROUTE_LAUNCHES == before
+    assert trace.COUNTS == before
 
 
 @pytest.mark.parametrize("shape", [(2, 33, 20, 384), (2, 50, 4, 36)])
@@ -510,9 +511,9 @@ def test_einsum_route_matches_jax_einsum_core(dtype):
     jd = JAX_DTYPES[dtype]
     want, vjp = jax.vjp(_jax_einsum_core, *(jnp.asarray(a, jd) for a in (q, k, v)))
     want = np.asarray(want.astype(jnp.float32))
-    before = dict(sa.ATTN_ROUTE_LAUNCHES)
+    before = dict(trace.COUNTS)
     got, got_grads = _port_grads(einsum_attention, q, k, v, g, dtype)
-    assert sa.ATTN_ROUTE_LAUNCHES == before   # counted on the card only
+    assert trace.COUNTS == before   # counted on the card only
     if dtype == torch.float32:
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
         for name, a, b in zip("qkv", got_grads, vjp(jnp.asarray(g))):

@@ -56,8 +56,8 @@ def test_port_imports_no_jax():
 
 
 TRAIN_SLICE_MODULES = (
-    "core.config", "core.prng", "data.augment", "losses.adversarial", "losses.patchnce",
-    "losses.reconstruction", "models.attention", "models.discriminator_patchgan",
+    "core.config", "core.prng", "core.trace", "data.augment", "losses.adversarial",
+    "losses.patchnce", "losses.reconstruction", "models.attention", "models.discriminator_patchgan",
     "ops.diffaugment", "ops.kernels.spatial_attention", "train.cut_trainer", "train.ema",
     "train.optim", "data.folders", "data.loader", "train.checkpoint", "train.msgpack_codec",
     "train.loss_tracker", "train.plotting", "train.loop", "cli.train_cutpp")

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from gan_variant_research_tpu.ops.pallas import resblock as jax_rb
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.ops.kernels import resblock as rb
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -83,10 +84,10 @@ def test_ragged_shapes_match_jax_reference(shape, c_out):
 
 def test_cpu_wrapper_takes_plain_version_and_counts_nothing(flagship_like):
     x, w1, b1, _, _ = _t(*flagship_like)
-    before = (rb.LAUNCHES, dict(rb.FWD_ROUTE_LAUNCHES))
+    before = dict(trace.COUNTS)
     got = rb.reflect_conv3x3(x, w1, b1)
     assert torch.equal(got, rb.reflect_conv3x3_reference(x, w1, b1))
-    assert (rb.LAUNCHES, rb.FWD_ROUTE_LAUNCHES) == before
+    assert trace.COUNTS == before
     assert rb._forward_fn.cache_info().currsize == 0  # nothing was built
 
 
@@ -124,7 +125,8 @@ def test_module_imports_and_runs_without_nvcc(tmp_path):
         "import torch\n"
         "from gan_variant_research_tpu_torch.ops.kernels import resblock as rb\n"
         "y = rb.reflect_conv3x3(torch.ones(1, 3, 3, 2), torch.ones(3, 3, 2, 4), torch.zeros(4))\n"
-        "assert float(y[0, 1, 1, 0]) == 18.0 and rb.LAUNCHES == 0\n"
+        "from gan_variant_research_tpu_torch.core import trace\n"
+        "assert float(y[0, 1, 1, 0]) == 18.0 and trace.COUNTS == {}\n"
         "from gan_variant_research_tpu_torch.ops.kernels import _build\n"
         "assert not _build.BUILD_DIR.exists() or _build.library_path('reflect_conv3x3').parent == _build.BUILD_DIR\n"
     )
@@ -280,7 +282,9 @@ def test_pad_fwd_channels(shape, c_out):
 ])
 def test_fwd_route(shape, c_out, dtype, route):
     assert rb.fwd_route(shape, c_out, dtype) == route
-    assert route in rb.FWD_ROUTES and set(rb.FWD_ROUTE_LAUNCHES) == set(rb.FWD_ROUTES)
+    assert route in rb.FWD_ROUTES
+    counted = {k.rsplit(".", 1)[1] for k in trace.COUNTS if k.startswith("trunk.fwd.")}
+    assert counted <= set(rb.FWD_ROUTES)
 
 
 def test_fwd_route_refuses_other_dtypes():

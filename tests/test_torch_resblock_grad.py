@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from gan_variant_research_tpu.ops.pallas import resblock as jax_rb
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.ops.kernels import resblock as rb
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
 
@@ -176,11 +177,11 @@ def test_cpu_gradients_build_and_launch_nothing():
     x, w, b, dy = map(torch.from_numpy, _inputs((1, 4, 4, 8), 8))
     x.requires_grad_()
     w.requires_grad_()
-    before = (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES, dict(rb.DX_ROUTE_LAUNCHES))
+    before = dict(trace.COUNTS)
     torch.autograd.grad(rb.reflect_conv3x3(x, w, b), (x, w), dy)
     rb.reflect_conv3x3_dx(dy, w.detach())
     rb.reflect_conv3x3_dw(x.detach(), dy)
-    assert (rb.LAUNCHES, rb.DX_LAUNCHES, rb.DW_LAUNCHES, rb.DX_ROUTE_LAUNCHES) == before
+    assert trace.COUNTS == before
     for fn in (rb._forward_fn, rb._dx_fn, rb._dw_fn):
         assert fn.cache_info().currsize == 0
 
@@ -357,7 +358,9 @@ def test_wgmma_route_split_matches_reference_and_xla(shape, c_out):
 ])
 def test_dw_route(shape, c_out, dtype, route):
     assert rb.dw_route(shape, c_out, dtype) == route
-    assert route in rb.DW_ROUTES and set(rb.DW_ROUTE_LAUNCHES) == set(rb.DW_ROUTES)
+    assert route in rb.DW_ROUTES
+    counted = {k.rsplit(".", 1)[1] for k in trace.COUNTS if k.startswith("trunk.dw.")}
+    assert counted <= set(rb.DW_ROUTES)
 
 
 def test_dw_route_refuses_other_dtypes():
