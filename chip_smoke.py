@@ -67,9 +67,12 @@ Phases, one line each:
               PatchNCE 256 patches on [0, 4, 8, 12, 16], R1 gamma 10 every
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
-              must launch 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
+              launches 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
               trunk convs, each with its backward), every forward, dx and dw
-              on its bf16 wgmma route; losses finite; G, D and
+              on its bf16 wgmma route: the wrappers count them on the host
+              where the step's body runs there, twice on the first step of a
+              graph key (eager, then the capture), never on a replay
+              (cut.graph.* counters); losses finite; G, D and
               EMA moved. Then one float32 step at batch 2 through the kernels
               and through the plain versions, from one state and one set of
               draws: losses agree to 1e-4, Adam's mu per leaf to 1e-3 of the
@@ -83,6 +86,20 @@ Phases, one line each:
               rounding in the attention core, so the kernel path is held to
               be no farther from a float64-core path than the plain path is
               (see phase_train_variant);
+   cut_graph - the flagship step graphed (CUDA graphs, CUTTrainer.train_step)
+              against the same body run eagerly and run eagerly again, from
+              one set of weights, batches and draws, under
+              cudnn.deterministic: 34 steps (R1 on 0, 16 and 32), graph
+              counters eager 2, capture 2, replay 32; every loss and every
+              parameter, Adam moment and EMA leaf equal in every bit, or no
+              farther from the eager path than twice the eager path's
+              distance from itself plus tests/test_torch_cut_trainer.py's
+              1e-4; 16 more steps timed on both paths (host ms a call, device
+              ms a step from CUDA events); a state rebuilt from the graphed
+              state's checkpoint payload at step 64 captures both keys anew
+              and matches over 4 steps; the variant generator (VARIANT_CUT)
+              over 17 steps; max_memory_allocated, max_memory_reserved and
+              the graph pool's bytes;
 7. timing   - trunk conv at batch 32 (serving) and 12 (the train step), dx and
               dw at batch 12, bf16, against their plain versions and cuDNN's
               bf16 calls (CUDA events), and the forward's main pass, dx's
@@ -124,10 +141,12 @@ Phases, one line each:
               with max_steps 320. Asserts the checkpoint files, that
               latest_checkpoint picks ckpt_final, that the state restored
               from it equals the saved one bitwise, the resumed loader's
-              first batch indices, 54/54/54 trunk launches on every step,
-              finite losses in every CSV row and JSON line; prints steps/s,
-              the share of the loop's wall time spent in next(loader), the
-              async and synchronous save times and the checkpoint's size.
+              first batch indices, 54/54/54 trunk launches on every step (an
+              eager step of each graph key in each run, counted on the host
+              at it and at its capture; replays on the other steps), finite
+              losses in every CSV row and JSON line; prints steps/s, the
+              share of the loop's wall time spent in next(loader), the async
+              and synchronous save times and the checkpoint's size.
 10. eval     - the port's MiFID/FID evaluation (evalsuite/cli.py::
               run_evaluation) on seeded folders of 7,000 fake and 300 real
               256^2 JPEGs (the Kaggle submission's minimum and the Monet
@@ -387,6 +406,32 @@ def check_routes(resblock, before: dict, want: dict, what: str) -> None:
               f"{what}: {op} launches by route {got}, want {want[op]} on bf16_wgmma")
 
 
+GRAPH_COUNTERS = ("eager", "capture", "replay")
+
+
+def graph_counts() -> dict:
+    """``cut.graph.{eager,capture,replay}`` from ``trace.COUNTS``."""
+    from gan_variant_research_tpu_torch.core import trace
+
+    return {k: trace.COUNTS.get(f"cut.graph.{k}", 0) for k in GRAPH_COUNTERS}
+
+
+def graph_delta(before: dict) -> dict:
+    now = graph_counts()
+    return {k: now[k] - before[k] for k in GRAPH_COUNTERS}
+
+
+def host_runs(ran: dict, what: str) -> int:
+    """How many times a CUT step ran its body on the host, from its
+    ``graph_delta``: 2 on the first step of a key (eager, then the capture,
+    which launches nothing on the card), 0 on a replay. The wrappers count a
+    kernel's launch on the host, so a step's counts are its launches times
+    this; the card runs them once a step either way."""
+    check(ran["eager"] + ran["replay"] == 1 and ran["capture"] == ran["eager"],
+          f"{what}: the step ran {ran}, want one eager step with its capture or one replay")
+    return ran["eager"] + ran["capture"]
+
+
 def before_instance_norm(name: str) -> bool:
     """G's conv biases that an instance norm follows: analytic gradient 0."""
     return name.endswith("bias") and not name.startswith("output_conv")
@@ -637,20 +682,27 @@ def phase_train(rng, g_tree, d_tree):
     reset_counts(resblock)
     r1_values = []
     for photos, monets in batches:
-        before, routes = counts(resblock), route_counts(resblock)
+        before, routes, ran = counts(resblock), route_counts(resblock), graph_counts()
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
-        check_routes(resblock, routes, dict.fromkeys(routes, 3 * TRUNK_CONVS), "flagship step")
+        ran = graph_delta(ran)
+        host = host_runs(ran, "flagship step")
+        check_routes(resblock, routes, dict.fromkeys(routes, host * 3 * TRUNK_CONVS),
+                     "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
         r1_values.append(vals["r1"])
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
-              launches_fwd_dx_dw="/".join(map(str, step_counts)), fwd_dx_dw_route="bf16_wgmma",
+              graph="replay" if ran["replay"] else "eager+capture",
+              host_launches_fwd_dx_dw="/".join(map(str, step_counts)),
+              fwd_dx_dw_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
-        check(step_counts == want, f"step launched {step_counts} (fwd, dx, dw), want {want}")
-    launches = counts(resblock)
+        check(step_counts == tuple(host * w for w in want),
+              f"step counted {step_counts} (fwd, dx, dw) on the host, want {host} x {want}")
+    # each step launched ``want`` on the card: eagerly or in its replay
+    launches = tuple(TRAIN_STEPS * w for w in want)
     check(r1_values[0] > 0 and not any(r1_values[1:]), f"R1 cadence: {r1_values}")
     moved = {k: max(float((getattr(state, k)[n].detach() - t).abs().max())
                     for n, t in start[k].items()) for k in start}
@@ -747,6 +799,7 @@ def profile_once(fn, op: str, rows: int, **fields) -> dict:
 def phase_timing(gen, rng, net, trainer, state, batches):
     from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
     from gan_variant_research_tpu_torch.ops.kernels import resblock
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
 
     # the forward at the served shape (batch 32) and at the train step's
     # (batch 12), where its 54 launches a step run: plain, kernel, kernel,
@@ -829,10 +882,13 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     step_ms = {}
     for path in ("kernel", "plain"):
         fn = resblock.reflect_conv3x3 if path == "kernel" else resblock.reflect_conv3x3_reference
+        # a trainer of its own for the plain path: a trainer's graphs hold
+        # the path they were captured on
+        t = trainer if path == "kernel" else CUTTrainer(trainer.config)
         with trunk_conv(resblock, fn):
             for kind, step in (("warmup", 1), ("r1", 0)):
                 step_ms[(path, kind)] = wall_ms(
-                    lambda s=step: trainer.train_step(state, photos, monets, step=s), 4)
+                    lambda s=step, t=t: t.train_step(state, photos, monets, step=s), 4)
     phase("timing", op="train_step", batch=photos.shape[0], dtype="bf16",
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
@@ -1274,20 +1330,26 @@ def phase_train_variant(rng, g_tree, d_tree):
     reset_attn_counts(sa)
     for photos, monets in batches:
         before, routes = (*counts(resblock), *attn_counts(sa)), route_counts(resblock)
+        ran = graph_counts()
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
-        check_routes(resblock, routes, dict.fromkeys(routes, 3 * TRUNK_CONVS), "variant step")
+        ran = graph_delta(ran)
+        host = host_runs(ran, "variant step")
+        check_routes(resblock, routes, dict.fromkeys(routes, host * 3 * TRUNK_CONVS),
+                     "variant step")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
-              launches_trunk="/".join(map(str, step_counts[:3])),
-              launches_attn="/".join(map(str, step_counts[3:])),
+              graph="replay" if ran["replay"] else "eager+capture",
+              host_launches_trunk="/".join(map(str, step_counts[:3])),
+              host_launches_attn="/".join(map(str, step_counts[3:])),
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
-        check(step_counts == want, f"variant step launched {step_counts} (trunk fwd/dx/dw, "
-                                   f"attention fwd/dkv/dq), want {want}")
-    launches = attn_counts(sa)
+        check(step_counts == tuple(host * w for w in want),
+              f"variant step counted {step_counts} (trunk fwd/dx/dw, attention fwd/dkv/dq) on "
+              f"the host, want {host} x {want}")
+    launches = tuple(TRAIN_STEPS * w for w in want[3:])
     moved = {}
     for kind in ("g_params", "ema"):
         for prefix in ("attn_", "channel_attn_", "style_gate_"):
@@ -1332,6 +1394,271 @@ def phase_train_variant(rng, g_tree, d_tree):
     return trainer, state, batches, launches
 
 
+# --------------------------------------------------------------------------- #
+# the CUT step as CUDA graphs against the same body run eagerly
+
+GRAPH_STEPS, GRAPH_TIMED, GRAPH_RESUME_AT, GRAPH_RESUMED = 34, 16, 64, 4
+GRAPH_VARIANT_STEPS = 17
+# losses to 1e-4 relative (1e-6 absolute), every leaf to 1e-4 of its largest
+# value: tests/test_torch_cut_trainer.py's parity tolerances
+GRAPH_LOSS_RTOL, GRAPH_LEAF_REL = 1e-4, 1e-4
+
+
+def eager_cut_step(trainer, state, photos, monets, step: int, draws) -> dict:
+    """``CUTTrainer.train_step`` with its body always run eagerly (the CPU
+    path's route, on the card): never captured or replayed."""
+    from gan_variant_research_tpu_torch.train.cut_trainer import LOSS_KEYS
+
+    do_r1, do_identity = trainer.step_flags(step)
+    losses = trainer._eager(state, photos, monets, draws, trainer.step_scalars(state, step),
+                            do_r1, do_identity)
+    trainer._advance(state, step, do_r1)
+    return {k: float(v) for k, v in zip(LOSS_KEYS, losses.unbind())}
+
+
+def cut_leaves(state) -> dict:
+    """Every tensor of a CUT state the step writes: parameters, moments, EMA."""
+    out = {}
+    for part in ("g_params", "d_params", "ema"):
+        out.update({f"{part}:{k}": v for k, v in getattr(state, part).items()})
+    for opt in ("opt_g", "opt_d"):
+        for m in ("mu", "nu"):
+            out.update({f"{opt}.{m}:{k}": v for k, v in getattr(getattr(state, opt), m).items()})
+    return out
+
+
+def cut_state_gap(a, b) -> tuple[bool, float, str]:
+    """(a and b equal in every bit, the largest |a - b| of a leaf over the
+    leaf's largest |b|, that leaf) over ``cut_leaves``; the largest leaves
+    out G's leaves whose gradient is analytically 0 (``zero_gradient_leaf``:
+    rounding noise that Adam scales up to steps of lr)."""
+    la, lb = cut_leaves(a), cut_leaves(b)
+    same, worst, where = True, 0.0, ""
+    for k, y in lb.items():
+        x = la[k].detach()
+        y = y.detach()
+        if not torch.equal(x, y):
+            same = False
+            part, name = k.split(":", 1)
+            if part in ("g_params", "ema", "opt_g.mu", "opt_g.nu") and zero_gradient_leaf(name):
+                continue
+            rel = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+            if rel > worst:
+                worst, where = rel, k
+    return same and a.opt_g.count == b.opt_g.count and a.opt_d.count == b.opt_d.count, \
+        worst, where
+
+
+def loss_gap(a: list[dict], b: list[dict]) -> float:
+    """The largest |a - b| over max(|b|, 1e-2) of any loss of any step (the
+    floor keeps losses at 0, as r1 off its steps, from dividing by 0)."""
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-2) for x, y in zip(a, b) for k in y)
+
+
+def numpy_payload(tree):
+    """A checkpoint payload with its tensors as numpy arrays on the host, as
+    ``load_checkpoint`` gives them."""
+    if isinstance(tree, dict):
+        return {k: numpy_payload(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree
+
+
+def graph_pool_bytes() -> int:
+    """Bytes of the allocator's segments in CUDA graph pools (pool id other
+    than (0, 0))."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def graphed_vs_eager(name: str, cfg, g_tree, d_tree, rng, steps: int) -> dict:
+    """``steps`` steps of ``cfg`` from one set of weights, batches and
+    draws: graphed (``train_step``), eagerly (``eager_cut_step``) and eagerly
+    again (the eager path's own run-to-run difference), under
+    ``cudnn.deterministic``. Returns the trainers, states and numbers."""
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
+
+    b, s = cfg["batch_size"], cfg["image_size"]
+    batches = [(torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda(),
+                torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda())
+               for _ in range(4)]
+    trainers = {path: CUTTrainer(cfg) for path in ("graphed", "eager", "eager2")}
+    states = {path: t.state_from_jax(g_tree, d_tree, device="cuda") for path, t in trainers.items()}
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    draws = [trainers["graphed"].sample_draws(gen, b) for _ in range(steps)]
+    losses = {path: [] for path in trainers}
+    torch.cuda.synchronize()
+    ran = dict.fromkeys(GRAPH_COUNTERS, 0)
+    for step in range(steps):
+        photos, monets = batches[step % len(batches)]
+        for path, t in trainers.items():
+            if path == "graphed":
+                before = graph_counts()
+                states[path], out = t.train_step(states[path], photos, monets, step=step,
+                                                 draws=draws[step])
+                ran = {k: n + graph_delta(before)[k] for k, n in ran.items()}
+                out = {k: float(v) for k, v in out.items()}
+            else:
+                out = eager_cut_step(t, states[path], photos, monets, step, draws[step])
+            losses[path].append(out)
+    torch.cuda.synchronize()
+    return {"name": name, "trainers": trainers, "states": states, "batches": batches,
+            "gen": gen, "losses": losses, "ran": ran}
+
+
+def check_graphed(run: dict, what: str, **fields) -> None:
+    """The graphed state and losses against the eager path's: equal in every
+    bit, or no farther than the eager path is from itself (twice, plus the
+    parity tolerances)."""
+    st, ls = run["states"], run["losses"]
+    same, leaf, where = cut_state_gap(st["graphed"], st["eager"])
+    _, leaf_noise, _ = cut_state_gap(st["eager2"], st["eager"])
+    loss = loss_gap(ls["graphed"], ls["eager"])
+    loss_noise = loss_gap(ls["eager2"], ls["eager"])
+    first = [loss_gap(ls[p][:3], ls["eager"][:3]) for p in ("graphed", "eager2")]
+    same = same and loss == 0.0
+    phase("cut_graph", check=what, bitwise=same, leaf_max_rel=f"{leaf:.3e}", worst_leaf=where,
+          eager_vs_eager_leaf_max_rel=f"{leaf_noise:.3e}", loss_max_rel=f"{loss:.3e}",
+          eager_vs_eager_loss_max_rel=f"{loss_noise:.3e}",
+          first_3_steps_loss_max_rel=f"{first[0]:.3e}",
+          eager_vs_eager_first_3_steps=f"{first[1]:.3e}", **fields)
+    check(same or (leaf <= 2 * leaf_noise + GRAPH_LEAF_REL
+                   and loss <= 2 * loss_noise + GRAPH_LOSS_RTOL),
+          f"{what}: graphed vs eager leaves {leaf} ({where}), losses {loss}; the eager path "
+          f"from itself {leaf_noise}, {loss_noise}")
+
+
+def timed_steps(fn, first: int, n: int) -> tuple[float, float]:
+    """(mean host ms a call, device ms a step from CUDA events around the
+    ``n`` calls ``fn(step)`` from ``first``, after a synchronise)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host = 0.0
+    start.record()
+    for step in range(first, first + n):
+        t0 = time.perf_counter()
+        fn(step)
+        host += time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return host / n * 1e3, start.elapsed_time(end) / n
+
+
+def phase_cut_graph(rng) -> dict:
+    """The flagship CUT step graphed against the same body run eagerly on
+    the card, from one set of weights, batches and draws: GRAPH_STEPS steps
+    (R1 on 0, 16, 32), then a period of GRAPH_TIMED steps timed on both
+    paths, then a state rebuilt from the graphed state's checkpoint payload
+    run GRAPH_RESUMED steps from step GRAPH_RESUME_AT (an R1 step) on both;
+    the variant generator (VARIANT_CUT) over GRAPH_VARIANT_STEPS. The
+    counters: two eager steps and two captures, then replays only."""
+    from gan_variant_research_tpu_torch.train.cut_trainer import LOSS_KEYS
+
+    cfg = FLAGSHIP_CUT
+    b = cfg["batch_size"]
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = graphed_vs_eager("flagship", cfg, flagship_params(rng), flagship_d_params(rng), rng,
+                           GRAPH_STEPS)
+    want = {"eager": 2, "capture": 2, "replay": GRAPH_STEPS - 2}
+    check(run["ran"] == want, f"flagship graph counters {run['ran']}, want {want}")
+    r1 = [x["r1"] > 0 for x in run["losses"]["graphed"]]
+    check(r1 == [s % 16 == 0 for s in range(GRAPH_STEPS)], f"R1 cadence {r1}")
+    check_graphed(run, f"flagship {GRAPH_STEPS} steps", **{f"graph_{k}": v
+                                                          for k, v in run["ran"].items()})
+    pool = graph_pool_bytes()
+    phase("cut_graph", model="cut-resnet9-ngf64+patchgan-ndf64", batch=b,
+          max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+          max_memory_reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+          graph_pool_gib=f"{pool / 2**30:.3f}")
+
+    # a period of steps, timed on each path
+    trainers, states, batches = run["trainers"], run["states"], run["batches"]
+    draws = [trainers["graphed"].sample_draws(run["gen"], b) for _ in range(GRAPH_TIMED)]
+    first = GRAPH_STEPS
+
+    def graphed(step):
+        photos, monets = batches[step % len(batches)]
+        states["graphed"], out = trainers["graphed"].train_step(
+            states["graphed"], photos, monets, step=step, draws=draws[step - first])
+        run["losses"]["graphed"].append(out)
+
+    def eager(path):
+        def one(step):
+            # eager_cut_step without its reads of the losses, which wait
+            photos, monets = batches[step % len(batches)]
+            do_r1, do_identity = trainers[path].step_flags(step)
+            out = trainers[path]._eager(states[path], photos, monets, draws[step - first],
+                                        trainers[path].step_scalars(states[path], step),
+                                        do_r1, do_identity)
+            trainers[path]._advance(states[path], step, do_r1)
+            run["losses"][path].append(dict(zip(LOSS_KEYS, out.unbind())))
+        return one
+
+    ran = graph_counts()
+    times = {"graphed": timed_steps(graphed, first, GRAPH_TIMED)}
+    ran = graph_delta(ran)
+    check(ran == {"eager": 0, "capture": 0, "replay": GRAPH_TIMED},
+          f"timed period ran {ran}, want replays only")
+    times["eager"] = timed_steps(eager("eager"), first, GRAPH_TIMED)
+    for step in range(first, first + GRAPH_TIMED):   # the third state, not timed
+        eager("eager2")(step)
+    torch.cuda.synchronize()
+    for path in run["losses"]:
+        run["losses"][path] = [{k: float(v) for k, v in x.items()} for x in run["losses"][path]]
+    phase("cut_graph", timed=f"steps {first}-{first + GRAPH_TIMED - 1}",
+          graphed_host_ms_a_call=f"{times['graphed'][0]:.3f}",
+          graphed_device_ms_a_step=f"{times['graphed'][1]:.3f}",
+          eager_host_ms_a_call=f"{times['eager'][0]:.3f}",
+          eager_device_ms_a_step=f"{times['eager'][1]:.3f}",
+          graphed_images_per_s=f"{b / times['graphed'][1] * 1e3:.2f}",
+          eager_images_per_s=f"{b / times['eager'][1] * 1e3:.2f}")
+    check_graphed(run, f"flagship {GRAPH_STEPS + GRAPH_TIMED} steps")
+
+    # a state rebuilt from the graphed state's payload: a new key, captured anew
+    graphed_t = trainers["graphed"]
+    payload = numpy_payload(graphed_t.checkpoint_payload(states["graphed"]))
+    for path, t in trainers.items():
+        states[path] = t.state_from_payload(payload, GRAPH_RESUME_AT, device="cuda")
+    diff = states_equal(states["graphed"], states["eager"])
+    check(not diff, f"the states rebuilt from one payload differ in {diff}")
+    draws = [graphed_t.sample_draws(run["gen"], b) for _ in range(GRAPH_RESUMED)]
+    run["losses"] = {path: [] for path in trainers}
+    ran = dict.fromkeys(GRAPH_COUNTERS, 0)
+    for i in range(GRAPH_RESUMED):
+        step = GRAPH_RESUME_AT + i
+        photos, monets = batches[step % len(batches)]
+        before = graph_counts()
+        states["graphed"], out = graphed_t.train_step(states["graphed"], photos, monets,
+                                                      step=step, draws=draws[i])
+        ran = {k: n + graph_delta(before)[k] for k, n in ran.items()}
+        run["losses"]["graphed"].append({k: float(v) for k, v in out.items()})
+        for path in ("eager", "eager2"):
+            run["losses"][path].append(eager_cut_step(trainers[path], states[path], photos,
+                                                      monets, step, draws[i]))
+    want = {"eager": 2, "capture": 2, "replay": GRAPH_RESUMED - 2}
+    check(ran == want, f"restored state's graph counters {ran}, want {want}")
+    check_graphed(run, f"restored at {GRAPH_RESUME_AT}, {GRAPH_RESUMED} steps",
+                  **{f"graph_{k}": v for k, v in ran.items()})
+    out = {"times": times, "pool_bytes": pool}
+    del run, trainers, states, batches, draws, payload, graphed_t
+    torch.cuda.empty_cache()
+
+    # the variant generator (attention kernels, style-gate draws)
+    vrun = graphed_vs_eager("variant", VARIANT_CUT, variant_params(rng), flagship_d_params(rng),
+                            rng, GRAPH_VARIANT_STEPS)
+    want = {"eager": 2, "capture": 2, "replay": GRAPH_VARIANT_STEPS - 2}
+    check(vrun["ran"] == want, f"variant graph counters {vrun['ran']}, want {want}")
+    check_graphed(vrun, f"variant {GRAPH_VARIANT_STEPS} steps",
+                  **{f"graph_{k}": v for k, v in vrun["ran"].items()})
+    del vrun
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return out
+
+
 def attention_float64(q, k, v):
     """The attention core in float64, the yardstick of the float32 step."""
     attn = torch.softmax(q.double() @ k.double().transpose(1, 2), dim=-1)
@@ -1348,9 +1675,10 @@ def attention_reordered(q, k, v):
 
 
 def fp32_step_vs_plain(cfg, g_tree, d_tree, photos, monets):
-    """One float32 step of ``cfg`` from one state and one set of draws on
-    the kernel path, the plain path, and (with attention) the plain path
-    with the attention core in float64 and with its keys reordered, under
+    """One float32 step of ``cfg`` (``eager_cut_step``: its body run
+    eagerly) from one state and one set of draws on the kernel path, the
+    plain path, and (with attention) the plain path with the attention core
+    in float64 and with its keys reordered, under
     ``cudnn.deterministic``. Adam mu is compared per leaf relative to the
     leaf's max (to the net's max on leaves with an analytic gradient of 0).
     Returns (the losses' largest relative difference kernel vs plain, mu
@@ -1376,8 +1704,10 @@ def fp32_step_vs_plain(cfg, g_tree, d_tree, photos, monets):
                 stack.enter_context(plain_path(resblock, sa))
             if path in cores:
                 stack.enter_context(attention_core(sa, cores[path]))
-            st, losses = t32.train_step(st, photos, monets, step=0, draws=draws)
-        results[path] = (st, {k: float(v) for k, v in losses.items()})
+            # the step's body run eagerly: a capture would hold the path
+            # (and the float64 and reordered cores cannot be captured)
+            losses = eager_cut_step(t32, st, photos, monets, 0, draws)
+        results[path] = (st, losses)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
 
@@ -1412,6 +1742,7 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     from gan_variant_research_tpu_torch.cli.generate_folder import stylize_batch
     from gan_variant_research_tpu_torch.ops.kernels import resblock
     from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.train.cut_trainer import CUTTrainer
 
     shape = ATTN_SHAPE
     q, k, v, do = attention_inputs(shape, torch.bfloat16, gen)
@@ -1503,10 +1834,12 @@ def phase_timing_variant(gen, rng, net, trainer, state, batches) -> dict:
     photos, monets = batches[0]
     step_ms = {}
     for path in ("kernel", "plain"):
+        # a trainer of its own for the plain path, as in phase_timing
+        t = trainer if path == "kernel" else CUTTrainer(trainer.config)
         with plain_path(resblock, sa) if path == "plain" else contextlib.nullcontext():
             for kind, step in (("warmup", 1), ("r1", 0)):
                 step_ms[(path, kind)] = wall_ms(
-                    lambda s=step: trainer.train_step(state, photos, monets, step=s), 3)
+                    lambda s=step, t=t: t.train_step(state, photos, monets, step=s), 3)
     phase("timing", op="train_step_variant", batch=photos.shape[0], dtype="bf16",
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
@@ -1639,14 +1972,20 @@ def phase_attention_widths(gen, rng) -> dict:
         monets = u8()
         torch.cuda.synchronize()
         reset_attn_counts(sa)
+        ran = graph_counts()
         state, losses = trainer.train_step(state, photos, monets, step=1)
         torch.cuda.synchronize()
-        # 3 G passes, each with its backward
+        host = host_runs(graph_delta(ran), f"ngf {ngf} train step")
+        # 3 G passes, each with its backward; counted on the host by the
+        # eager run and the capture, launched once on the card
         want_step = (dict(dict.fromkeys(sa.ATTN_ROUTES, 0), **{route: 3 * ATTN_BLOCKS * calls}),
                      tuple(3 * ATTN_BLOCKS * x for x in per_call))
-        stepped = (attn_route_counts(sa), attn_counts(sa))
-        check(stepped == want_step, f"ngf {ngf}: a train step launched {stepped}, "
-              f"want {want_step}")
+        counted = (attn_route_counts(sa), attn_counts(sa))
+        check(counted == ({r: host * n for r, n in want_step[0].items()},
+                          tuple(host * n for n in want_step[1])),
+              f"ngf {ngf}: a train step counted {counted} on the host, want {host} x "
+              f"{want_step}")
+        stepped = want_step
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"ngf {ngf}: non-finite losses {vals}")
         routes_seen[route] += served[0][route] + stepped[0][route]
@@ -1879,9 +2218,12 @@ def phase_train_run() -> dict:
     real_step, real_next = CUTTrainer.train_step, UnpairedLoader.__next__
 
     def counted_step(self, *a, **kw):
-        before = counts(resblock)
+        before, ran = counts(resblock), graph_counts()
         out = real_step(self, *a, **kw)
-        step_launches.append(tuple(x - y for x, y in zip(counts(resblock), before)))
+        host = host_runs(graph_delta(ran), "train_cut step")
+        # the host's counts per run of the body on the host (0 on a replay)
+        step_launches.append(tuple((x - y) // max(host, 1)
+                                   for x, y in zip(counts(resblock), before)))
         return out
 
     def recorded_next(self):
@@ -1929,10 +2271,16 @@ def phase_train_run() -> dict:
           f"{streams}")
     want = (3 * TRUNK_CONVS,) * 3
     n_steps = RUN_STEPS + RUN_MORE
-    check(len(step_launches) == n_steps and all(x == want for x in step_launches),
-          f"{len(step_launches)} steps; launches other than {want}: "
-          f"{sorted(set(step_launches) - {want})}")
-    check(launches == (n_steps * want[0],) * 3, f"train run launched {launches}")
+    # a replayed step counts nothing on the host: it reads (0, 0, 0) here
+    check(len(step_launches) == n_steps
+          and all(x in (want, (0, 0, 0)) for x in step_launches)
+          and sum(x == want for x in step_launches) == 4,
+          f"{len(step_launches)} steps; host counts other than {want} a run of the body, "
+          f"or not the 4 eager steps (two keys, two runs): "
+          f"{sorted(set(step_launches) - {want, (0, 0, 0)})}")
+    check(launches == (2 * 4 * want[0],) * 3, f"train run counted {launches} on the host")
+    # each step launched ``want`` on the card, eagerly or in its replay
+    launches = (n_steps * want[0],) * 3
     with open(root / "logs" / "losses_history.csv") as f:
         rows = f.read().splitlines()[1:]
     losses = [float(x) for r in rows for x in r.split(",")[1:]]
@@ -2538,6 +2886,7 @@ def main() -> int:
     vnet = phase_serve_variant(rng)
     vtrainer, vstate, vbatches, attn_launches = phase_train_variant(
         rng, variant_params(rng), flagship_d_params(rng))
+    phase_cut_graph(np.random.default_rng(16))
 
     # 7. timing
     conv_ms, grad_ms = phase_timing(gen, rng, net, trainer, state, batches)

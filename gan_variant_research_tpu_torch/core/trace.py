@@ -17,9 +17,12 @@ there (a trunk ``dx``) has no parent: readers place it by time. A span
 opened with ``step=`` (a train step's root) sets the step id that every
 span closed until it ends carries, on any thread.
 
-``count(name, n)`` adds to ``COUNTS``; counters are always on (the kernels'
-launches by route: ``trunk.fwd.<route>``, ``trunk.dx.<route>``,
-``trunk.dw.<route>``, ``attn.fwd.<route>``, ``attn.dkv``, ``attn.dq``).
+``count(name, n)`` adds to ``COUNTS``; counters are always on: the kernels'
+launches by route, counted on the host as each wrapper launches
+(``trunk.fwd.<route>``, ``trunk.dx.<route>``, ``trunk.dw.<route>``,
+``attn.fwd.<route>``, ``attn.dkv``, ``attn.dq``; a CUDA-graph replay
+counts none), and how each CUT step ran (``cut.graph.eager``,
+``cut.graph.capture``, ``cut.graph.replay``: ``train/cut_trainer.py``).
 """
 
 from __future__ import annotations

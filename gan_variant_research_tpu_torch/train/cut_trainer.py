@@ -27,7 +27,9 @@ parameters as dicts of tensors and the step calls the modules through
 ``torch.func.functional_call``. The step updates the state's tensors in
 place and returns the state. On CUDA every reflect trunk conv, forward and
 backward, runs on the hand-written kernels, whatever the config's
-``use_pallas`` says.
+``use_pallas`` says, and the step replays a CUDA graph of itself from the
+second step of each key on (``CUTTrainer.train_step``): the host decides
+the step's flags and scalars, and the graph reads them from its buffers.
 
 ``checkpoint_payload`` / ``state_from_payload`` write and read the JAX
 trainer's checkpoint payload (``cut_trainer.py:735-773`` of the JAX
@@ -39,6 +41,7 @@ restore does not read.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -189,6 +192,11 @@ class CUTTrainer:
         self.d_real_domain = get("runtime.d_real_domain", "monet")
         if self.d_real_domain not in ("photo", "monet"):
             raise ValueError(f"runtime.d_real_domain must be photo|monet, got {self.d_real_domain}")
+        # the card's CUDA graphs of the step, by key (``_graph_key``), their
+        # pool and the stream they are captured on
+        self._graphs: dict[tuple, _StepGraph] = {}
+        self._pool = None
+        self._stream: torch.cuda.Stream | None = None
 
     # ------------------------------------------------------------------ #
 
@@ -315,107 +323,267 @@ class CUTTrainer:
     def _aug(self, x, draws):
         return x if self.da_policy is None else diff_augment(x, self.da_policy, draws)
 
+    def step_scalars(self, state: CUTTrainState, step: int) -> StepScalars:
+        """Step ``step``'s numbers in doubles: Adam's rate and bias
+        corrections of G's update, of D's hinge update and of D's R1 update
+        (the one after it), and the identity weight."""
+        n_d = state.opt_d.count
+        return StepScalars(*self.opt_g.scalars(state.opt_g.count), *self.opt_d.scalars(n_d),
+                           *self.opt_d.scalars(n_d + 1), self.identity_weight_at(step))
+
     def train_step(self, state: CUTTrainState, photos_u8: torch.Tensor,
                    monets_u8: torch.Tensor, step: int | None = None,
                    draws: StepDraws | None = None):
         """One training step on uint8 NHWC batches on the state's device.
         ``step`` defaults to ``state.step``; ``draws=None`` samples them from
         ``state.rng``. Returns (state, losses) with the losses as float32
-        0-d tensors under ``LOSS_KEYS``; the state is updated in place. Its
-        phases are the spans ``cut.<phase>`` under ``cut.step``
-        (``core/trace.py``); the G update and the EMA sit in the root."""
+        0-d tensors under ``LOSS_KEYS``, views of one tensor made for this
+        call; the state is updated in place.
+
+        The host keeps the books (the step index, the flags, Adam's counts,
+        ``step_scalars``); ``_body`` does the arithmetic on tensors alone.
+        On the CPU the body runs eagerly. On the card the first step of a
+        key (``_graph_key``) runs it eagerly and captures it into a CUDA
+        graph; later steps of that key copy their batches, draws and
+        scalars into the graph's buffers and replay it. Counters
+        ``cut.graph.eager``, ``cut.graph.capture``, ``cut.graph.replay``;
+        the body's phases are the spans ``cut.<phase>`` under ``cut.step``
+        (``core/trace.py``) on the steps that run it on the host, and a
+        replay is the span ``cut.replay``."""
         step = state.step if step is None else int(step)
         with trace.span("cut.step", step=step):
             do_r1, do_identity = self.step_flags(step)
-            batch = photos_u8.shape[0]
             if draws is None:
                 with trace.span("cut.draws"):
-                    draws = self.sample_draws(state.rng, batch)
-            g_params, d_params = state.g_params, state.d_params
-            zero = torch.zeros((), dtype=torch.float32, device=photos_u8.device)
+                    draws = self.sample_draws(state.rng, photos_u8.shape[0])
+            args = (state, photos_u8, monets_u8, draws, self.step_scalars(state, step),
+                    do_r1, do_identity)
+            losses = self._graphed(*args) if photos_u8.device.type == "cuda" else self._eager(*args)
+            self._advance(state, step, do_r1)
+        return state, dict(zip(LOSS_KEYS, losses.unbind()))
 
-            with trace.span("cut.augment"):
-                photos = train_augment(photos_u8, self.image_size, draws.photo_aug)
-                monets = train_augment(monets_u8, self.image_size, draws.monet_aug)
-            identity_weight = self.identity_weight_at(step)
-            real = photos if self.d_real_domain == "photo" else monets
+    def _eager(self, state, photos_u8, monets_u8, draws, values, do_r1, do_identity):
+        """The body run eagerly on the step's own tensors, its scalars made
+        on the state's device; the losses stacked."""
+        trace.count("cut.graph.eager")
+        scalars = StepScalars(*(torch.full((), v, dtype=torch.float32, device=photos_u8.device)
+                                for v in values))
+        return torch.stack(self._body(state, photos_u8, monets_u8, draws, scalars,
+                                      do_r1, do_identity))
 
-            # one G forward serves the D step, the adversarial head and both
-            # sides of PatchNCE
-            with trace.span("cut.g_forward"):
-                if self.nce_w > 0:
-                    fake, src_feats = functional_call(
-                        self.generator, g_params, (photos,),
-                        {"extract": self.nce_layers, "style_alpha": draws.style_fwd})
-                    _, tgt_feats = functional_call(
-                        self.generator, g_params, (fake,),
-                        {"extract": self.nce_layers, "taps_only": True,
-                         "style_alpha": draws.style_nce})
-                else:
-                    fake = functional_call(self.generator, g_params, (photos,),
-                                           {"style_alpha": draws.style_fwd})
-                    src_feats = tgt_feats = []
+    @staticmethod
+    def _advance(state: CUTTrainState, step: int, do_r1: bool) -> None:
+        """The host's books after step ``step``: the index and Adam's
+        counts (D updates twice on an R1 step)."""
+        state.step = step + 1
+        state.opt_g = AdamState(state.opt_g.count + 1, state.opt_g.mu, state.opt_g.nu)
+        state.opt_d = AdamState(state.opt_d.count + 1 + do_r1, state.opt_d.mu, state.opt_d.nu)
 
-            with trace.span("cut.d_step"):
-                real_aug = self._aug(real, draws.da_real)
-                fake_aug = self._aug(fake.detach(), draws.da_fake)
-                preds = self._d(d_params, torch.cat([real_aug.float(), fake_aug.float()]))
-                d_loss = discriminator_hinge_loss([p[:batch] for p in preds],
-                                                  [p[batch:] for p in preds])
-                d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
-                opt_d = self.opt_d.step(d_params, dict(zip(d_params, d_grads)), state.opt_d)
+    # ------------------------------------------------------------------ #
 
-            # lazy R1: a second D step
-            if do_r1:
-                with trace.span("cut.r1"):
-                    real32 = real.detach().float().requires_grad_()
-                    d_sum = sum(p.float().sum() for p in self._d(d_params, real32, fp32=True))
-                    (g_img,) = torch.autograd.grad(d_sum, real32, create_graph=True)
-                    r1 = g_img.square().sum(dim=(1, 2, 3)).mean()
-                    # conv_out's bias does not reach the image gradient: its grad is 0
-                    r1_grads = torch.autograd.grad(r1 * (self.r1_gamma * self.r1_every),
-                                                   list(d_params.values()),
-                                                   materialize_grads=True)
-                    opt_d = self.opt_d.step(d_params, dict(zip(d_params, r1_grads)), opt_d)
-                    r1 = r1.detach()
+    def _graph_key(self, state: CUTTrainState, photos_u8: torch.Tensor,
+                   monets_u8: torch.Tensor, do_r1: bool, do_identity: bool) -> tuple:
+        """What a graph of the step depends on: the device, the step's
+        flags, the batches' shapes and dtypes, and the addresses of the
+        state's tensors, which the graph reads and writes in place."""
+        return (photos_u8.device, do_r1, do_identity, photos_u8.shape, photos_u8.dtype,
+                monets_u8.shape, monets_u8.dtype, _state_addresses(state))
+
+    def _graphed(self, state, photos_u8, monets_u8, draws, values, do_r1, do_identity):
+        """The step on the card: a replay of the key's graph, or, the first
+        time a key is seen, the body run eagerly and then captured (capture
+        executes nothing). The graphs share one memory pool and run one
+        after another on one stream; a graph's outputs are copied out
+        before the next one runs. Only the graphs of the newest state are
+        kept."""
+        key = self._graph_key(state, photos_u8, monets_u8, do_r1, do_identity)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            with trace.span("cut.replay"):
+                entry.load(photos_u8, monets_u8, draws, values)
+                entry.graph.replay()
+            trace.count("cut.graph.replay")
+            return torch.stack(entry.losses)
+        device = photos_u8.device
+        if any(k[-1] != key[-1] for k in self._graphs):
+            # a new state: the old one's graphs write to its addresses; their
+            # pool goes with them
+            torch.cuda.synchronize(device)
+            self._graphs.clear()
+            self._pool = None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        if self._stream is None or self._stream.device != device:
+            # one capture stream: the allocator reuses a pool's freed blocks
+            # only on the stream that freed them
+            self._stream = torch.cuda.Stream(device)
+        entry = _StepGraph(photos_u8, monets_u8, draws, values)
+        args = (state, entry.photos, entry.monets, entry.draws, entry.scalars, do_r1, do_identity)
+        side = self._stream
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            losses = self._body(*args)
+            trace.count("cut.graph.eager")
+            torch.cuda.synchronize(device)
+            entry.graph = torch.cuda.CUDAGraph()
+            entry.graph.capture_begin(pool=self._pool)
+            entry.losses = self._body(*args)
+            entry.graph.capture_end()
+            trace.count("cut.graph.capture")
+        torch.cuda.current_stream(device).wait_stream(side)
+        self._graphs[key] = entry
+        return torch.stack(losses)
+
+    def _body(self, state: CUTTrainState, photos_u8: torch.Tensor, monets_u8: torch.Tensor,
+              draws: StepDraws, sc: StepScalars, do_r1: bool,
+              do_identity: bool) -> tuple[torch.Tensor, ...]:
+        """The step's arithmetic, on tensors alone: the state's parameters,
+        moments and EMA (updated in place), the batches, the draws and the
+        scalars ``sc`` (float32 0-d tensors). Returns the losses in
+        ``LOSS_KEYS`` order."""
+        batch = photos_u8.shape[0]
+        g_params, d_params = state.g_params, state.d_params
+        zero = torch.zeros((), dtype=torch.float32, device=photos_u8.device)
+
+        with trace.span("cut.augment"):
+            photos = train_augment(photos_u8, self.image_size, draws.photo_aug)
+            monets = train_augment(monets_u8, self.image_size, draws.monet_aug)
+        real = photos if self.d_real_domain == "photo" else monets
+
+        # one G forward serves the D step, the adversarial head and both
+        # sides of PatchNCE
+        with trace.span("cut.g_forward"):
+            if self.nce_w > 0:
+                fake, src_feats = functional_call(
+                    self.generator, g_params, (photos,),
+                    {"extract": self.nce_layers, "style_alpha": draws.style_fwd})
+                _, tgt_feats = functional_call(
+                    self.generator, g_params, (fake,),
+                    {"extract": self.nce_layers, "taps_only": True,
+                     "style_alpha": draws.style_nce})
             else:
-                r1 = zero
+                fake = functional_call(self.generator, g_params, (photos,),
+                                       {"style_alpha": draws.style_fwd})
+                src_feats = tgt_feats = []
 
-            # the G head, against the updated D
-            with trace.span("cut.g_head"):
-                g_adv = generator_hinge_loss(self._d(d_params, self._aug(fake, draws.da_g)))
-                nce = (patch_nce_loss(src_feats, tgt_feats, draws.nce, self.temperature)
-                       if self.nce_w > 0 else zero)
-                head = self.adv_w * g_adv + self.nce_w * nce
-                # into G's parameters only: nothing lands in D's gradients
-                g_grads = list(torch.autograd.grad(head, list(g_params.values())))
+        with trace.span("cut.d_step"):
+            real_aug = self._aug(real, draws.da_real)
+            fake_aug = self._aug(fake.detach(), draws.da_fake)
+            preds = self._d(d_params, torch.cat([real_aug.float(), fake_aug.float()]))
+            d_loss = discriminator_hinge_loss([p[:batch] for p in preds],
+                                              [p[batch:] for p in preds])
+            d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+            self.opt_d.update(d_params, dict(zip(d_params, d_grads)), state.opt_d,
+                              sc.d_lr, sc.d_c1, sc.d_c2)
 
-            if do_identity:
-                with trace.span("cut.identity"):
-                    idt_gen = self.generator_f32 if self.identity_fp32 else self.generator
-                    rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),),
-                                          {"style_alpha": draws.style_idt})
-                    idt = identity_loss(rec, monets)
-                    idt_grads = torch.autograd.grad(idt, list(g_params.values()))
-                    g_grads = [g + identity_weight * ig for g, ig in zip(g_grads, idt_grads)]
-                    idt = idt.detach()
-            else:
-                idt = zero
+        # lazy R1: a second D step
+        if do_r1:
+            with trace.span("cut.r1"):
+                real32 = real.detach().float().requires_grad_()
+                d_sum = sum(p.float().sum() for p in self._d(d_params, real32, fp32=True))
+                (g_img,) = torch.autograd.grad(d_sum, real32, create_graph=True)
+                r1 = g_img.square().sum(dim=(1, 2, 3)).mean()
+                # conv_out's bias does not reach the image gradient: its grad is 0
+                r1_grads = torch.autograd.grad(r1 * (self.r1_gamma * self.r1_every),
+                                               list(d_params.values()),
+                                               materialize_grads=True)
+                self.opt_d.update(d_params, dict(zip(d_params, r1_grads)), state.opt_d,
+                                  sc.r1_lr, sc.r1_c1, sc.r1_c2)
+                r1 = r1.detach()
+        else:
+            r1 = zero
 
-            opt_g = self.opt_g.step(g_params, dict(zip(g_params, g_grads)), state.opt_g)
-            ema_update(state.ema, g_params, self.ema_decay)
+        # the G head, against the updated D
+        with trace.span("cut.g_head"):
+            g_adv = generator_hinge_loss(self._d(d_params, self._aug(fake, draws.da_g)))
+            nce = (patch_nce_loss(src_feats, tgt_feats, draws.nce, self.temperature)
+                   if self.nce_w > 0 else zero)
+            head = self.adv_w * g_adv + self.nce_w * nce
+            # into G's parameters only: nothing lands in D's gradients
+            g_grads = list(torch.autograd.grad(head, list(g_params.values())))
 
-            state.step, state.opt_g, state.opt_d = step + 1, opt_g, opt_d
-            losses = {
-                "d_loss": d_loss.detach(),
-                "g_loss": (head + identity_weight * idt).detach(),
-                "g_adv": g_adv.detach(),
-                "nce": nce.detach(),
-                "identity": idt,
-                "r1": r1,
-                "identity_weight": torch.full_like(zero, identity_weight),
-                "featmatch": zero,
-                "palette": zero,
-                "repulsion": zero,
-            }
-        return state, losses
+        if do_identity:
+            with trace.span("cut.identity"):
+                idt_gen = self.generator_f32 if self.identity_fp32 else self.generator
+                rec = functional_call(idt_gen, g_params, (monets.to(idt_gen.dtype),),
+                                      {"style_alpha": draws.style_idt})
+                idt = identity_loss(rec, monets)
+                idt_grads = torch.autograd.grad(idt, list(g_params.values()))
+                g_grads = [g + sc.identity_weight * ig for g, ig in zip(g_grads, idt_grads)]
+                idt = idt.detach()
+        else:
+            idt = zero
+
+        self.opt_g.update(g_params, dict(zip(g_params, g_grads)), state.opt_g,
+                          sc.g_lr, sc.g_c1, sc.g_c2)
+        ema_update(state.ema, g_params, self.ema_decay)
+        return (d_loss.detach(), (head + sc.identity_weight * idt).detach(), g_adv.detach(),
+                nce.detach(), idt, r1, sc.identity_weight, zero, zero, zero)
+
+
+class StepScalars(NamedTuple):
+    """The numbers of one CUT step that change from step to step: Adam's
+    rate and bias corrections of G's update, of D's hinge update and of D's
+    R1 update, and the identity weight. Doubles on the host; float32 0-d
+    tensors on the state's device in the step's body."""
+
+    g_lr: float | torch.Tensor
+    g_c1: float | torch.Tensor
+    g_c2: float | torch.Tensor
+    d_lr: float | torch.Tensor
+    d_c1: float | torch.Tensor
+    d_c2: float | torch.Tensor
+    r1_lr: float | torch.Tensor
+    r1_c1: float | torch.Tensor
+    r1_c2: float | torch.Tensor
+    identity_weight: float | torch.Tensor
+
+
+def _state_addresses(state: CUTTrainState) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for group in (state.g_params, state.d_params, state.ema,
+                                            state.opt_g.mu, state.opt_g.nu,
+                                            state.opt_d.mu, state.opt_d.nu)
+                 for t in group.values())
+
+
+def _map_tensors(fn, obj):
+    """``obj`` (dataclasses, tuples and lists of tensors, strings, None) with
+    ``fn`` applied to each tensor."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _map_tensors(fn, getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_map_tensors(fn, o) for o in obj)
+    return obj
+
+
+def _tensors(obj) -> list[torch.Tensor]:
+    """The tensors of ``obj`` in ``_map_tensors``' order."""
+    out = []
+    _map_tensors(out.append, obj)
+    return out
+
+
+class _StepGraph:
+    """One key's CUDA graph of the step body, its input buffers (copies of
+    the first step's batches and draws, the scalars as float32 0-d
+    tensors) and its outputs, which each replay overwrites."""
+
+    def __init__(self, photos_u8, monets_u8, draws: StepDraws, values: StepScalars):
+        self.photos, self.monets = photos_u8.clone(), monets_u8.clone()
+        self.draws = _map_tensors(torch.clone, draws)
+        self.draw_buffers = _tensors(self.draws)
+        self.scalars = StepScalars(*(torch.full((), v, dtype=torch.float32,
+                                                device=photos_u8.device) for v in values))
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.losses: tuple[torch.Tensor, ...] = ()
+
+    def load(self, photos_u8, monets_u8, draws: StepDraws, values: StepScalars) -> None:
+        self.photos.copy_(photos_u8)
+        self.monets.copy_(monets_u8)
+        for buf, t in zip(self.draw_buffers, _tensors(draws), strict=True):
+            buf.copy_(t)
+        for buf, v in zip(self.scalars, values):
+            buf.fill_(v)

@@ -14,6 +14,12 @@ only when ``norm >= max_norm``, with no epsilon (``torch.nn.utils.
 clip_grad_norm_`` divides by ``norm + 1e-6``). It is decided on the device,
 without a host sync. ``Optimizer.step`` runs the spans ``optim.clip`` and
 ``optim.adam`` (``core/trace.py``).
+
+An update's rate and Adam's bias corrections are decided on the host in
+doubles (``Optimizer.scalars``) and reach the arithmetic as float32 0-d
+tensors on the parameters' device, rounded once, so that a CUDA graph of a
+train step reads each step's values from its buffers
+(``train/cut_trainer.py``).
 """
 
 from __future__ import annotations
@@ -76,28 +82,40 @@ class Optimizer:
         zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         return AdamState(0, zeros(), zeros())
 
-    @torch.no_grad()
+    def scalars(self, count: int) -> tuple[float, float, float]:
+        """The update that follows ``count`` earlier ones: its rate and
+        Adam's bias corrections ``1 - b1 ** (count + 1)`` and ``1 - b2 **
+        (count + 1)``, in doubles."""
+        n = count + 1
+        return self.learning_rate(count), 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
+
     def step(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
              state: AdamState) -> AdamState:
         """Clip ``grads``, update the moments, and add the Adam update to
-        ``params`` in place. Returns the new state (the moments are updated
-        in place)."""
+        ``params`` in place (``update`` on ``scalars(state.count)``).
+        Returns the new state (the moments are updated in place)."""
+        device = next(iter(params.values())).device
+        self.update(params, grads, state, *(torch.full((), v, dtype=torch.float32, device=device)
+                                            for v in self.scalars(state.count)))
+        return AdamState(state.count + 1, state.mu, state.nu)
+
+    @torch.no_grad()
+    def update(self, params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+               state: AdamState, lr: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor) -> None:
+        """``step``'s arithmetic on tensors alone: the rate ``lr`` and the
+        bias corrections ``c1``, ``c2`` are 0-d tensors; ``state.count`` is
+        neither read nor moved."""
         if self.max_norm is not None:
             with trace.span("optim.clip"):
                 grads = clip_by_global_norm(grads, self.max_norm)
         with trace.span("optim.adam"):
-            count = state.count + 1
-            lr = self.learning_rate(state.count)
-            c1 = 1.0 - self.b1 ** count
-            c2 = 1.0 - self.b2 ** count
             for k, p in params.items():
                 g = grads[k].float()
                 mu, nu = state.mu[k], state.nu[k]
                 mu.mul_(self.b1).add_((1.0 - self.b1) * g)
                 nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
                 update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-                p.add_((-lr * update).to(p.dtype))
-        return AdamState(count, state.mu, state.nu)
+                p.sub_((lr * update).to(p.dtype))
 
     def state_dict(self, state: AdamState, tree: Callable[[dict], dict]) -> dict:
         """``state`` in the layout ``flax.serialization.to_state_dict`` gives
