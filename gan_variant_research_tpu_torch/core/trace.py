@@ -1,7 +1,11 @@
 """The port's spans and counters.
 
 ``span(name)`` marks a stretch of host time in the program's own files: the
-train steps' phases, the optimizer's updates, the trunk kernels' wrappers.
+train steps' phases, the optimizer's updates, the trunk kernels' wrappers
+(``trunk.fwd``, ``trunk.dx``, ``trunk.dw``), the attention kernels' wrappers
+(``attn.fwd``, ``attn.dkv``, ``attn.dq``, around the plain versions too on
+the CPU) and the variant generator's blocks (``variant.attn``,
+``variant.channel``, ``variant.style``).
 Spans are off by default, and then ``span`` returns one shared no-op
 context: a flag read, no allocation, no clock read, nothing on the device.
 ``enable()`` turns them on: each span closed appends a ``Span`` to an

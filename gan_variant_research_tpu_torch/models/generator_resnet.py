@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.attention import (
     ChannelAttention,
     SelfAttention2d,
@@ -168,14 +169,17 @@ class ResNetGenerator(nn.Module):
 
     def _trunk_block(self, h: torch.Tensor, i: int,
                      style_alpha: torch.Tensor | None) -> torch.Tensor:
-        """Residual block i, then its variant blocks."""
+        """Residual block i, then its variant blocks, each in its span
+        (``variant.attn``, ``variant.channel``, ``variant.style``)."""
         h = getattr(self, f"res_{i}")(h)
-        for name in (f"attn_{i}", f"channel_attn_{i}"):
+        for name, span in ((f"attn_{i}", "variant.attn"), (f"channel_attn_{i}", "variant.channel")):
             if hasattr(self, name):
-                h = getattr(self, name)(h)
+                with trace.span(span):
+                    h = getattr(self, name)(h)
         if self.use_style_dropout:
-            h = getattr(self, f"style_gate_{i}")(
-                h, None if style_alpha is None else style_alpha[i])
+            with trace.span("variant.style"):
+                h = getattr(self, f"style_gate_{i}")(
+                    h, None if style_alpha is None else style_alpha[i])
         return h
 
     def forward(self, x: torch.Tensor, extract: Sequence[int] | None = None,

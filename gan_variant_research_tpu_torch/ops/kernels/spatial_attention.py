@@ -52,7 +52,9 @@ tensors, through the same routes. ``core/trace.py``'s ``COUNTS`` counts
 the launches where they happen: the forward's under ``attn.fwd.<route>``,
 by the route the caller names (a raw call is ``direct``; the einsum core's
 calls on the card are ``attn.fwd.einsum``), the backward's under
-``attn.dkv`` and ``attn.dq``.
+``attn.dkv`` and ``attn.dq``. Each wrapper's host side, its checks, its
+allocations and the launch (on the CPU, the plain version), is the span
+``attn.fwd``, ``attn.dkv`` or ``attn.dq``.
 
 ``spatial_attention_dkv_contract`` and ``spatial_attention_dq_contract`` are
 the backward as the library kernel rounds it (p and ds in the inputs' dtype,
@@ -232,23 +234,24 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(o in q's dtype, lse (B, n) float32). On CUDA it launches
     ``csrc/spatial_attention.cu`` on the current stream and counts the
     launch under ``route`` (one of ``KERNEL_ROUTES``)."""
-    _check(q, k, v)
-    if route not in KERNEL_ROUTES:
-        raise ValueError(f"route must be one of {KERNEL_ROUTES}, got {route!r}")
-    if q.device.type == "cpu":
-        return _plain_forward(q, k, v)
-    _check_cuda(q, k, v)
-    b, n, dqk = q.shape
-    dv = v.shape[2]
-    o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    fn = _forward_fn()
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(err, "spatial_attention")
-    trace.count(f"attn.fwd.{route}")
-    return o, lse
+    with trace.span("attn.fwd"):
+        _check(q, k, v)
+        if route not in KERNEL_ROUTES:
+            raise ValueError(f"route must be one of {KERNEL_ROUTES}, got {route!r}")
+        if q.device.type == "cpu":
+            return _plain_forward(q, k, v)
+        _check_cuda(q, k, v)
+        b, n, dqk = q.shape
+        dv = v.shape[2]
+        o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
+        fn = _forward_fn()
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                     b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
+        _raise_on(err, "spatial_attention")
+        trace.count(f"attn.fwd.{route}")
+        return o, lse
 
 
 def _check_bwd(q, k, v, do, lse, di) -> None:
@@ -267,41 +270,43 @@ def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Ten
     """(dk, dv) in the inputs' dtype, the same bits from run to run. On CUDA
     it launches ``csrc/spatial_attention_dkv.cu`` (d_v up to
     ``backward_width(d_qk)``)."""
-    _check_bwd(q, k, v, do, lse, di)
-    if q.device.type == "cpu":
-        return spatial_attention_dkv_reference(q, k, v, do, lse, di)
-    _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
-    b, n, dqk = q.shape
-    dv = v.shape[2]
-    dk, dv_out = torch.empty_like(k), torch.empty_like(v)
-    fn = _dkv_fn()
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 di.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, n, dqk, dv,
-                 _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(err, "spatial_attention_dkv")
-    trace.count("attn.dkv")
-    return dk, dv_out
+    with trace.span("attn.dkv"):
+        _check_bwd(q, k, v, do, lse, di)
+        if q.device.type == "cpu":
+            return spatial_attention_dkv_reference(q, k, v, do, lse, di)
+        _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
+        b, n, dqk = q.shape
+        dv = v.shape[2]
+        dk, dv_out = torch.empty_like(k), torch.empty_like(v)
+        fn = _dkv_fn()
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     di.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, n, dqk, dv,
+                     _DTYPE_CODES[q.dtype], _stream(q))
+        _raise_on(err, "spatial_attention_dkv")
+        trace.count("attn.dkv")
+        return dk, dv_out
 
 
 def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
     """dq in the inputs' dtype, the same bits from run to run. On CUDA it
     launches ``csrc/spatial_attention_dq.cu`` (d_v up to
     ``backward_width(d_qk)``)."""
-    _check_bwd(q, k, v, do, lse, di)
-    if q.device.type == "cpu":
-        return spatial_attention_dq_reference(q, k, v, do, lse, di)
-    _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
-    b, n, dqk = q.shape
-    dq = torch.empty_like(q)
-    fn = _dq_fn()
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 di.data_ptr(), dq.data_ptr(), b, n, dqk, v.shape[2],
-                 _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(err, "spatial_attention_dq")
-    trace.count("attn.dq")
-    return dq
+    with trace.span("attn.dq"):
+        _check_bwd(q, k, v, do, lse, di)
+        if q.device.type == "cpu":
+            return spatial_attention_dq_reference(q, k, v, do, lse, di)
+        _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
+        b, n, dqk = q.shape
+        dq = torch.empty_like(q)
+        fn = _dq_fn()
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     di.data_ptr(), dq.data_ptr(), b, n, dqk, v.shape[2],
+                     _DTYPE_CODES[q.dtype], _stream(q))
+        _raise_on(err, "spatial_attention_dq")
+        trace.count("attn.dq")
+        return dq
 
 
 def _round8(d: int) -> int:
