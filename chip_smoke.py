@@ -9,7 +9,7 @@ Phases, one line each:
 
 1. device   - requires CUDA (there is no CPU fallback); prints the card's
               name and power limit as nvidia-smi gives them;
-2. build    - builds the six hand-written kernels from csrc/ (nvcc,
+2. build    - builds the seven hand-written kernels from csrc/ (nvcc,
               sm_90a), all at once, with ptxas's spills and wgmma
               serialisation for each;
 3. kernels  - each kernel against its plain PyTorch version on the card
@@ -48,6 +48,25 @@ Phases, one line each:
               float64 core and against the contract version, for the kernel,
               the plain version and the contract version with float32 sums,
               and the same check on every seed;
+   norm     - the instance-norm kernels (csrc/instance_norm.cu) against
+              the plain chain (ops/nn_ops.py::instance_norm, then the ReLU),
+              with and without the ReLU, at every shape the cells run
+              (NORM_SHAPES: the generator's stem, down and trunk outputs at
+              batches 12, 32, 16 and 48, CycleGAN's D at 16) and ragged ones
+              (NORM_EDGES): the Function and its counters (norm.fwd.kernel,
+              norm.bwd.kernel), the forward bitwise the plain apply on the
+              kernel's own statistics, and bitwise the chain in every (n, c)
+              whose bf16 scale and offset both sides round alike (where the
+              float32 sums, added in another order, straddle a bf16 rounding
+              point, scale and offset differ by one ulp at most and y by 4
+              ulps of the larger of x * scale and offset), the backward
+              within 2e-2 by norm of autograd of the chain and within 2^-8
+              by norm of the hand-derived backward on the kernel's own
+              statistics, the backward's ReLU mask the forward's, two
+              launches bitwise equal; a constant channel reported (its
+              gradient is rounding noise times inv^3); forward and backward
+              timed at NORM_TIMED (queued CUDA events; each kernel on the
+              profiler's clock) beside the chain and the byte bounds;
 4. autograd - the gradients of one float32 trunk conv and of one float32
               attention core (4, 4096, 32, 256) through their
               autograd.Functions against autograd of the plain versions;
@@ -56,7 +75,8 @@ Phases, one line each:
               in the JAX package's layout, converted by convert.py) serves 3
               batches of 8 seeded 256x256 photos through stylize_batch, 18
               trunk launches a batch, every one on the forward's bf16 wgmma
-              route; a float32 forward at batch 2 through
+              route, and 23 norm forwards on the kernel route; a float32
+              forward at batch 2 through
               the kernel and through the plain version agree to 1e-3.
               serve_variant: the same with self-attention after blocks 3
               and 7, channel attention after block 5 and style gates
@@ -68,8 +88,10 @@ Phases, one line each:
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
               launches 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
-              trunk convs, each with its backward), every forward, dx and dw
-              on its bf16 wgmma route: the wrappers count them on the host
+              trunk convs, each with its backward) and 68 instance norms
+              with their backward (23 + 22 + 23), every forward, dx and dw
+              on its bf16 wgmma route, every norm on the kernel route: the
+              wrappers count them on the host
               where the step's body runs there, twice on the first step of a
               graph key (eager, then the capture), never on a replay
               (cut.graph.* counters); losses finite; G, D and
@@ -441,11 +463,13 @@ def before_instance_norm(name: str) -> bool:
 
 def phase_build() -> None:
     from gan_variant_research_tpu_torch.ops.kernels import _build, resblock
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
     from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
 
     builds = {"reflect_conv3x3": resblock._forward_fn, "reflect_conv3x3_dx": resblock._dx_fn,
               "reflect_conv3x3_dw": resblock._dw_fn, "spatial_attention": sa._forward_fn,
-              "spatial_attention_dkv": sa._dkv_fn, "spatial_attention_dq": sa._dq_fn}
+              "spatial_attention_dkv": sa._dkv_fn, "spatial_attention_dq": sa._dq_fn,
+              "instance_norm": inm._norm_fn}
 
     def timed(fn):
         t = time.perf_counter()
@@ -592,6 +616,269 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
+# Every shape the cells run the norm at: the ResNet generator's stem / up_1,
+# down_0 / up_0 and down_1 / trunk outputs at the CUT batch 12, the served
+# batch 32 and CycleGAN's G batches 16, 32 and 48; CycleGAN's D at batch 16.
+NORM_SHAPES = tuple((n, 256 // 2 ** i, 256 // 2 ** i, 64 * 2 ** i)
+                    for n in (12, 32, 16, 48) for i in range(3)) + (
+    (16, 64, 64, 128), (16, 32, 32, 256), (16, 31, 31, 512))
+# ragged shapes: C not a multiple of 8 (one channel a thread), C past one
+# block of 256 channels, H * W under a block's rows
+NORM_EDGES = ((1, 4, 4, 3), (2, 31, 31, 24), (3, 5, 7, 520), (2, 9, 9, 136), (1, 2, 2, 8),
+              (2, 3, 3, 1000))
+NORM_TIMED = ((12, 64, 64, 256), (12, 256, 256, 64), (32, 64, 64, 256), (32, 256, 256, 64))
+NORM_KERNELS = {"fwd": ("inorm_fwd_stats", "inorm_fwd_finalize", "inorm_fwd_apply"),
+                "bwd": ("inorm_bwd_stats", "inorm_bwd_finalize", "inorm_bwd_apply")}
+NORM_FLAGSHIP_STEP = 23 + 22 + 23      # full, taps-only and identity passes
+NORM_SERVED_BATCH = 23
+
+
+def norm_chain(x, relu):
+    from gan_variant_research_tpu_torch.ops import nn_ops
+
+    y = nn_ops.instance_norm(x)
+    return torch.relu(y) if relu else y
+
+
+def norm_counts() -> dict:
+    from gan_variant_research_tpu_torch.core import trace
+
+    return {f"{d}.{r}": trace.COUNTS.get(f"norm.{d}.{r}", 0)
+            for d in ("fwd", "bwd") for r in ("kernel", "plain")}
+
+
+def check_norm_counts(before: dict, fwd: int, bwd: int, what: str) -> dict:
+    """The norm counters' deltas since ``before``, checked against ``fwd``
+    and ``bwd`` kernel calls and no plain one; returns the deltas read."""
+    got = {k: v - before[k] for k, v in norm_counts().items()}
+    want = {"fwd.kernel": fwd, "fwd.plain": 0, "bwd.kernel": bwd, "bwd.plain": 0}
+    check(got == want, f"{what}: norm calls by route {got}, want {want}")
+    return got
+
+
+def norm_device_launches(prof) -> dict | None:
+    """How many times each norm kernel ran on the card in a torch.profiler
+    session (its device events), by direction: ``{"fwd": n, "bwd": n}``,
+    the three kernels of a direction checked to have run alike; None if the
+    session holds no device event at all (the tracer now and then returns
+    none, ``kernel_device_us``)."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return None
+    ran = {k: sum(k in n for n in names) for ks in NORM_KERNELS.values() for k in ks}
+    out = {}
+    for d, ks in NORM_KERNELS.items():
+        check(len({ran[k] for k in ks}) == 1, f"norm {d} kernels ran unalike: {ran}")
+        out[d] = ran[ks[0]]
+    return out
+
+
+def larger_term_ulps(got, want, terms) -> float:
+    """The largest |got - want| in bf16 ulps of the larger of ``terms``
+    (the two values each result is rounded from)."""
+    larger = torch.maximum(terms[0].float().abs(), terms[1].float().abs())
+    return float(((got.float() - want.float()).abs() / bf16_ulp(larger)).max())
+
+
+def norm_forward_vs_chain(x, y, yp, stats, sp, relu, eps) -> dict:
+    """The kernel's forward ``y`` against its contract on its own statistics
+    ``stats`` (bitwise) and against the chain's ``yp``: bitwise in each (n, c)
+    whose bf16 scale and offset the two statistics round alike; where the
+    float32 sums (added in another order, ~1e-7 apart) straddle a bf16
+    rounding point, the two scales and offsets lie one bf16 ulp apart at
+    most, and y within 4 ulps of the larger of x * scale and offset (2 from
+    x * scale, 1 from the offset, 1 from rounding y)."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    scale_k, offset_k, _, _ = inm._scale_offset(x, stats, eps)
+    scale_p, offset_p, _, _ = inm._scale_offset(x, sp, eps)
+    flipped = (scale_k != scale_p) | (offset_k != offset_p)
+    alike = ~flipped.expand_as(x)
+    step = max(larger_term_ulps(scale_k, scale_p, (scale_k, scale_p)),
+               larger_term_ulps(offset_k, offset_p, (offset_k, offset_p)))
+    contract = inm.instance_norm_apply_reference(x, stats, relu, eps)
+    return {"contract_bitwise": torch.equal(y, contract),
+            "alike_bitwise": torch.equal(y[alike], yp[alike]),
+            "flipped": int(flipped.sum()), "channels": flipped.numel(), "coef_ulps": step,
+            "ulps": larger_term_ulps(y, yp, (x * scale_p, offset_p.expand_as(x)))}
+
+
+def check_norm_forward(f: dict, what: str) -> None:
+    check(f["contract_bitwise"], f"{what}: forward not bitwise its contract on its statistics")
+    check(f["alike_bitwise"], f"{what}: forward not bitwise the chain where scale and offset agree")
+    check(f["flipped"] <= max(1, f["channels"] // 100) and f["coef_ulps"] <= 1.0
+          and f["ulps"] <= 4.0,
+          f"{what}: {f['flipped']} of {f['channels']} (n, c) round scale or offset otherwise "
+          f"({f['coef_ulps']} ulps), forward {f['ulps']} ulps from the chain")
+
+
+def phase_norm(gen) -> dict:
+    """The norm kernels against the plain chain at every shape the cells
+    run, forward and backward, with and without the ReLU; bitwise repeats;
+    then times at NORM_TIMED. Returns {shape: times}."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    eps = 1e-5
+    worst = {"fwd_ulps": 0.0, "bwd_rel": 0.0, "bwd_ulps": 0.0, "bwd_rel_contract": 0.0}
+    for shape in NORM_SHAPES + NORM_EDGES:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 1.3 + 0.2).bfloat16()
+        g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        for relu in (False, True):
+            before = norm_counts()
+            xr = x.clone().requires_grad_()
+            y = inm.instance_norm(xr, relu=relu)
+            dx, = torch.autograd.grad(y, xr, g)
+            y = y.detach()
+            check_norm_counts(before, 1, 1, f"norm {shape} relu={relu}")
+            _, y2, stats = inm._launch_forward(x, eps, relu)
+            dx2 = inm._launch_backward(g, x, stats, eps, relu)
+            check(torch.equal(y, y2) and torch.equal(dx, dx2),
+                  f"norm {shape} relu={relu}: two launches differ")
+            xp = x.clone().requires_grad_()
+            yp = norm_chain(xp, relu)
+            dxp, = torch.autograd.grad(yp, xp, g)
+            sp = inm.instance_norm_stats_reference(x)
+            yp = yp.detach()
+            fwd = norm_forward_vs_chain(x, y, yp, stats, sp, relu, eps)
+            fwd_ulps = fwd["ulps"]
+            bwd_rel = float((dx.float() - dxp.float()).norm() / dxp.float().norm())
+            # against the hand-derived backward on the kernel's own statistics
+            # and the forward's ReLU mask (the kernel's own mask is that mask),
+            # by norm, and in ulps of the largest of g' * scale, a and b * x
+            # (reported): G1 and G2 are rounded to bf16 (as autograd's
+            # sum_to_size leaves them) after float32 sums in another order,
+            # and where d_scale and d_offset * mean cancel, one such rounding
+            # moves a and b by more than their own ulp
+            kept = g if not relu else torch.where(y > 0, g, torch.zeros_like(g))
+            contract = inm.instance_norm_backward_reference(kept, x, stats, False, eps)
+            check(not relu or torch.equal(dx, inm._launch_backward(kept, x, stats, eps, False)),
+                  f"norm {shape}: the backward's ReLU mask is not the forward's")
+            _, scale_k, a, b = inm.backward_terms(kept, x, stats, False, eps)
+            largest = torch.maximum(torch.maximum((kept.float() * scale_k.float()).abs(),
+                                                  a.abs().expand(x.shape)),
+                                    (b * x.float()).abs())
+            bwd_ulps = larger_term_ulps(dx, contract, (largest, largest))
+            bwd_rel_contract = float((dx.float() - contract.float()).norm()
+                                     / contract.float().norm())
+            stat_rel = float(((stats - sp).abs() / sp.abs().clamp_min(1e-6))[:, 0].max())
+            phase("norm", shape="x".join(map(str, shape)), relu=relu,
+                  fwd_bitwise_share=f"{float((y == yp).float().mean()):.6f}",
+                  fwd_max_ulps_of_larger_term=f"{fwd_ulps:.2f}",
+                  fwd_nc_rounded_otherwise=f"{fwd['flipped']}/{fwd['channels']}",
+                  mean_max_rel=f"{stat_rel:.2e}", bwd_rel_norm_vs_plain=f"{bwd_rel:.3e}",
+                  bwd_rel_norm_vs_contract=f"{bwd_rel_contract:.3e}",
+                  bwd_max_ulps_vs_contract=f"{bwd_ulps:.2f}", repeat="bitwise")
+            check_norm_forward(fwd, f"norm {shape} relu={relu}")
+            check(bwd_rel <= 2e-2, f"norm {shape}: backward {bwd_rel} from the plain chain")
+            check(bwd_rel_contract <= 2.0 ** -8,
+                  f"norm {shape}: backward {bwd_rel_contract} from its contract")
+            worst = {k: max(worst[k], v) for k, v in
+                     (("fwd_ulps", fwd_ulps), ("bwd_rel", bwd_rel), ("bwd_ulps", bwd_ulps),
+                      ("bwd_rel_contract", bwd_rel_contract))}
+            del xr, y, dx, y2, dx2, xp, yp, dxp, contract, kept, a, b, largest
+        del x, g
+        torch.cuda.empty_cache()
+    phase("norm", cases=2 * len(NORM_SHAPES + NORM_EDGES),
+          **{f"worst_{k}": f"{v:.3e}" for k, v in worst.items()})
+
+    # a constant channel: the variance is rounding alone and the gradient
+    # scales with inv^3 (~3e7), so kernel and chain, each on its own float32
+    # sums, agree in the forward only; reported, and held finite
+    x = (torch.randn(NORM_TIMED[0], device="cuda", generator=gen) * 1.3 + 0.2).bfloat16()
+    x[..., 0] = 0.7
+    g = torch.randn(x.shape, device="cuda", generator=gen).bfloat16()
+    for relu in (False, True):
+        _, y, stats = inm._launch_forward(x, eps, relu)
+        dx = inm._launch_backward(g, x, stats, eps, relu)
+        xp = x.clone().requires_grad_()
+        yp = norm_chain(xp, relu)
+        dxp, = torch.autograd.grad(yp, xp, g)
+        sp = inm.instance_norm_stats_reference(x)
+        fwd = norm_forward_vs_chain(x, y, yp.detach(), stats, sp, relu, eps)
+        rest = float((dx[..., 1:].float() - dxp[..., 1:].float()).norm()
+                     / dxp[..., 1:].float().norm())
+        phase("norm", case="constant_channel", shape="x".join(map(str, x.shape)), relu=relu,
+              var_kernel=f"{float(stats[0, 1, 0]):.3e}", var_plain=f"{float(sp[0, 1, 0]):.3e}",
+              fwd_max_ulps_of_larger_term=f"{fwd['ulps']:.2f}",
+              fwd_nc_rounded_otherwise=f"{fwd['flipped']}/{fwd['channels']}",
+              dx_channel0_max_kernel=f"{float(dx[..., 0].float().abs().max()):.3e}",
+              dx_channel0_max_plain=f"{float(dxp[..., 0].float().abs().max()):.3e}",
+              bwd_rel_norm_other_channels=f"{rest:.3e}")
+        check_norm_forward(fwd, f"norm constant channel relu={relu}")
+        check(bool(torch.isfinite(dx).all()), f"norm constant channel relu={relu}: dx not finite")
+    del x, g, dx, dxp, xp, yp
+
+    times = {}
+    for shape in NORM_TIMED:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 1.3 + 0.2).bfloat16()
+        g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        _, _, stats = inm._launch_forward(x, eps, True)
+        numel = x.numel()
+        row = {"fwd": queued_us(lambda: inm._launch_forward(x, eps, True)) / 1e3,
+               "bwd": queued_us(lambda: inm._launch_backward(g, x, stats, eps, True)) / 1e3}
+        def plain_fwd():
+            with torch.no_grad():
+                norm_chain(x, True)
+
+        def plain_both():
+            xr = x.detach().requires_grad_()
+            torch.autograd.grad(norm_chain(xr, True), xr, g)
+
+        def kernel_both():
+            xr = x.detach().requires_grad_()
+            torch.autograd.grad(inm.instance_norm(xr, relu=True), xr, g)
+
+        row["plain_fwd"] = queued_us(plain_fwd, 10) / 1e3
+        row["plain_fwd_bwd"] = queued_us(plain_both, 10) / 1e3
+        row["fwd_bwd"] = queued_us(kernel_both, 10) / 1e3
+        # bound: each input byte read once, each output written once; and the
+        # bytes this design moves (x read twice forward, g and x twice backward)
+        row["bound_fwd"] = 4 * numel / PEAK_BYTES * 1e3
+        row["bound_bwd"] = 6 * numel / PEAK_BYTES * 1e3
+        row["moved_fwd"] = 6 * numel / PEAK_BYTES * 1e3
+        row["moved_bwd"] = 10 * numel / PEAK_BYTES * 1e3
+        phase("timing", op="instance_norm_relu", shape="x".join(map(str, shape)), dtype="bf16",
+              splits=inm.norm_splits(shape, torch.cuda.get_device_properties(0).multi_processor_count),
+              fwd_ms=f"{row['fwd']:.4f}", bwd_ms=f"{row['bwd']:.4f}",
+              fwd_bwd_ms=f"{row['fwd_bwd']:.4f}", plain_fwd_ms=f"{row['plain_fwd']:.4f}",
+              plain_fwd_bwd_ms=f"{row['plain_fwd_bwd']:.4f}",
+              fwd_share_of_bound=f"{row['bound_fwd'] / row['fwd']:.3f}",
+              bwd_share_of_bound=f"{row['bound_bwd'] / row['bwd']:.3f}",
+              fwd_share_of_moved=f"{row['moved_fwd'] / row['fwd']:.3f}",
+              bwd_share_of_moved=f"{row['moved_bwd'] / row['bwd']:.3f}")
+        times[shape] = row
+        del x, g, stats
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_norm_parts(gen) -> None:
+    """The norm's kernels apart, on the device clock (torch.profiler), at
+    the timed shapes with the ReLU. Run last: a CUT graph captured during
+    or after a profiler session can crash the host at a replay after a
+    later session and another capture (PyTorch's tracer, with or without
+    these kernels), so the smoke profiles only once its long-lived graphs
+    are captured."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    eps = 1e-5
+    for shape in NORM_TIMED:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 1.3 + 0.2).bfloat16()
+        g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        _, _, stats = inm._launch_forward(x, eps, True)
+        parts = {}
+        for d, fn in (("fwd", lambda: inm._launch_forward(x, eps, True)),
+                      ("bwd", lambda: inm._launch_backward(g, x, stats, eps, True))):
+            for k, v in kernel_device_us(fn, 20, {k: k for k in NORM_KERNELS[d]}).items():
+                parts[f"{k}_ms"] = f"{v / 1e3:.4f}"
+        phase("timing", op="instance_norm_relu_parts", shape="x".join(map(str, shape)),
+              dtype="bf16", **parts)
+        del x, g, stats
+        torch.cuda.empty_cache()
+
+
 def phase_autograd(gen) -> None:
     from gan_variant_research_tpu_torch.ops.kernels import resblock
 
@@ -625,9 +912,10 @@ def phase_serve(rng):
     reset_counts(resblock)
     served = []
     for u8 in photos:
-        before, routes = counts(resblock)[0], route_counts(resblock)
+        before, routes, norms = counts(resblock)[0], route_counts(resblock), norm_counts()
         out = stylize_batch(net, u8)
         torch.cuda.synchronize()
+        check_norm_counts(norms, NORM_SERVED_BATCH, 0, "flagship batch")
         fwd = counts(resblock)[0] - before
         check(fwd == TRUNK_CONVS, f"{fwd} trunk launches in a batch, want {TRUNK_CONVS}")
         check_routes(resblock, routes, {"fwd": TRUNK_CONVS, "dx": 0, "dw": 0}, "flagship batch")
@@ -683,6 +971,7 @@ def phase_train(rng, g_tree, d_tree):
     r1_values = []
     for photos, monets in batches:
         before, routes, ran = counts(resblock), route_counts(resblock), graph_counts()
+        norms = norm_counts()
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
@@ -690,12 +979,15 @@ def phase_train(rng, g_tree, d_tree):
         host = host_runs(ran, "flagship step")
         check_routes(resblock, routes, dict.fromkeys(routes, host * 3 * TRUNK_CONVS),
                      "flagship step")
+        host_norms = check_norm_counts(norms, host * NORM_FLAGSHIP_STEP,
+                                       host * NORM_FLAGSHIP_STEP, "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
         r1_values.append(vals["r1"])
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
               graph="replay" if ran["replay"] else "eager+capture",
               host_launches_fwd_dx_dw="/".join(map(str, step_counts)),
+              host_norm_fwd_bwd=f"{host_norms['fwd.kernel']}/{host_norms['bwd.kernel']}",
               fwd_dx_dw_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
@@ -791,9 +1083,12 @@ def profile_once(fn, op: str, rows: int, **fields) -> dict:
                else "self_cuda_time_total")
     print(events.table(sort_by=sort_by, row_limit=rows), flush=True)
     idle = max(0.0, 1 - busy / wall)
+    norms = norm_device_launches(prof)
     phase("timing", op=op, **fields, wall_ms=f"{wall:.2f}", device_busy_ms=f"{busy:.2f}",
-          idle_share=f"{idle:.4f}")
-    return {"profiled_wall_ms": wall, "device_busy_ms": busy, "idle_share": idle}
+          idle_share=f"{idle:.4f}", device_norm_fwd_bwd=(
+              "not_measured" if norms is None else f"{norms['fwd']}/{norms['bwd']}"))
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy, "idle_share": idle,
+            "norm_launches": norms}
 
 
 def phase_timing(gen, rng, net, trainer, state, batches):
@@ -893,9 +1188,12 @@ def phase_timing(gen, rng, net, trainer, state, batches):
           **{f"{p}_{k}_ms": f"{v:.2f}" for (p, k), v in step_ms.items()},
           kernel_warmup_steps_per_s=f"{1e3 / step_ms[('kernel', 'warmup')]:.3f}")
 
-    profile_once(lambda: trainer.train_step(state, photos, monets, step=1),
-                 "train_step_profile", rows=40, kind="warmup")
-    return conv_ms, grad_ms
+    # the norm kernels the card ran in one replayed warmup step
+    norms = profile_once(lambda: trainer.train_step(state, photos, monets, step=1),
+                         "train_step_profile", rows=40, kind="warmup")["norm_launches"]
+    want = dict.fromkeys(NORM_KERNELS, NORM_FLAGSHIP_STEP)
+    check(norms in (None, want), f"a replayed warmup step ran norm kernels {norms}, want {want}")
+    return conv_ms, grad_ms, norms
 
 
 # --------------------------------------------------------------------------- #
@@ -2874,6 +3172,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase_kernels(gen)
     errs.update(phase_attention_kernels(gen))
+    norm_times = phase_norm(gen)
     phase_attention_tolerance()
     phase_autograd(gen)
     phase_attention_autograd(gen)
@@ -2881,15 +3180,15 @@ def main() -> int:
     # 5. serve, 6. train: the flagship generator, then the variant one
     rng = np.random.default_rng(0)
     net, serve_launches = phase_serve(rng)
-    trainer, state, batches, train_launches = phase_train(rng, flagship_params(rng),
-                                                          flagship_d_params(rng))
+    trainer, state, batches, train_launches = phase_train(
+        rng, flagship_params(rng), flagship_d_params(rng))
     vnet = phase_serve_variant(rng)
     vtrainer, vstate, vbatches, attn_launches = phase_train_variant(
         rng, variant_params(rng), flagship_d_params(rng))
     phase_cut_graph(np.random.default_rng(16))
 
     # 7. timing
-    conv_ms, grad_ms = phase_timing(gen, rng, net, trainer, state, batches)
+    conv_ms, grad_ms, norm_launches = phase_timing(gen, rng, net, trainer, state, batches)
     attn = phase_timing_variant(gen, rng, vnet, vtrainer, vstate, vbatches)
     del net, trainer, state, batches, vnet, vtrainer, vstate, vbatches
     torch.cuda.empty_cache()
@@ -2904,6 +3203,7 @@ def main() -> int:
     # 11. CycleGAN: kernels at its batches, steps, a run, serving
     cg = phase_cyclegan(gen)
 
+    phase_norm_parts(gen)
     bf16 = torch.bfloat16
     serve_shape = (TIME_BATCH, 64, 64, 256)
     flops = lambda shape: 2 * 9 * int(np.prod(shape)) * 256
@@ -2980,6 +3280,17 @@ def main() -> int:
         row("spatial_attention_dq", flash_py.format(1456), attn_launches[2],
             errs[("dq", ATTN_SHAPE, bf16)], times["dq"][0], times["dq"][1],
             attn_bounds["dq"], attn["library"]["bwd"], attn_bwd, **dqk128("dq", 2)),
+        # no TPU kernel: XLA fuses the JAX formula; times at the trunk shape,
+        # forward and backward apart, and at the stem's (12, 256, 256, 64)
+        {"name": "instance_norm", "route": "cuda",
+         "source": "gan_variant_research_tpu_torch/csrc/instance_norm.cu",
+         "replaces": "none (ops/nn_ops.py::instance_norm, fused by XLA in the JAX package)",
+         # each kernel's runs in one replayed warmup step (torch.profiler)
+         "launches_a_step": norm_launches,
+         **{f"{k}_{'x'.join(map(str, shape))}": norm_times[shape][k]
+            for shape in NORM_TIMED[:2]
+            for k in ("fwd", "bwd", "fwd_bwd", "plain_fwd", "plain_fwd_bwd", "bound_fwd",
+                      "bound_bwd")}},
     ], "serve_launches": serve_launches}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -33,7 +33,8 @@ import torch.nn as nn
 from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.layers import Conv2d
 from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as attention_core
-from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm, uniform_fan_in_
+from gan_variant_research_tpu_torch.ops.kernels.instance_norm import instance_norm
+from gan_variant_research_tpu_torch.ops.nn_ops import uniform_fan_in_
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gan_variant_research_tpu_torch.models.layers import Conv2d
-from gan_variant_research_tpu_torch.ops.nn_ops import avg_pool_3x3_s2, instance_norm
+from gan_variant_research_tpu_torch.ops.kernels.instance_norm import instance_norm
+from gan_variant_research_tpu_torch.ops.nn_ops import avg_pool_3x3_s2
 
 
 def _lrelu(h: torch.Tensor) -> torch.Tensor:

@@ -38,11 +38,12 @@ from gan_variant_research_tpu_torch.models.layers import (
     activation_fn,
     pad_2d,
 )
+from gan_variant_research_tpu_torch.ops.kernels.instance_norm import instance_norm
 from gan_variant_research_tpu_torch.ops.kernels.resblock import (
     fused_resblock,
     reflect_conv3x3,
 )
-from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm, uniform_fan_in_
+from gan_variant_research_tpu_torch.ops.nn_ops import uniform_fan_in_
 
 
 def _norm(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -53,6 +54,13 @@ def _norm(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "batch":
         raise NotImplementedError("batch norm is not supported")
     raise ValueError(f"Unknown norm: {kind!r}")
+
+
+def _norm_act(x: torch.Tensor, kind: str, act) -> torch.Tensor:
+    """``act(_norm(x, kind))``; instance norm then ReLU is one fused call."""
+    if kind == "instance" and act is torch.relu:
+        return instance_norm(x, relu=True)
+    return act(_norm(x, kind))
 
 
 class ResidualBlock(nn.Module):
@@ -102,7 +110,7 @@ class ResidualBlock(nn.Module):
                                   self._bias(1, x),
                                   self.conv2_weight.permute(2, 3, 1, 0),
                                   self._bias(2, x))
-        h = self.act(_norm(self._conv(x, 1), self.norm))
+        h = _norm_act(self._conv(x, 1), self.norm, self.act)
         h = _norm(self._conv(h, 2), self.norm)
         return x + h
 
@@ -199,13 +207,14 @@ class ResNetGenerator(nn.Module):
         last = max((i for i in tap_set if i < n_layers), default=-1)
         feats: list[torch.Tensor] = []
         reflect = self.padding_type == "reflect"
-        stages = [lambda h: self.act(_norm(self.initial_conv(
-            pad_2d(h, 3, "reflect") if reflect else h), self.norm))]
-        stages += [lambda h, i=i: self.act(_norm(getattr(self, f"down_{i}")(h), self.norm))
+        norm_act = lambda h: _norm_act(h, self.norm, self.act)  # noqa: E731
+        stages = [lambda h: norm_act(self.initial_conv(
+            pad_2d(h, 3, "reflect") if reflect else h))]
+        stages += [lambda h, i=i: norm_act(getattr(self, f"down_{i}")(h))
                    for i in range(self.n_down)]
         stages += [lambda h, i=i: self._trunk_block(h, i, style_alpha)
                    for i in range(self.n_blocks)]
-        stages += [lambda h, i=i: self.act(_norm(getattr(self, f"up_{i}")(h), self.norm))
+        stages += [lambda h, i=i: norm_act(getattr(self, f"up_{i}")(h))
                    for i in range(self.n_down)]
         h = x.to(self.dtype)
         for layer_idx, stage in enumerate(stages):

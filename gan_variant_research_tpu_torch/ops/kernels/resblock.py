@@ -16,7 +16,7 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 - ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
   reflect_conv3x3_dw.cu`` on CUDA (one of the routes ``DW_ROUTES``, picked
   by ``dw_route``), ``reflect_conv3x3_dw_reference`` on CPU.
-- ``fused_resblock``: conv -> instance norm -> ReLU -> conv -> instance norm
+- ``fused_resblock``: conv -> instance norm + ReLU -> conv -> instance norm
   -> residual add, NHWC.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gan_variant_research_tpu_torch.core import trace
-from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
+from gan_variant_research_tpu_torch.ops.kernels.instance_norm import instance_norm
 
 # The forward kernel's routes, in the order of its ``route`` argument:
 # float32 on FMA, bf16 on wgmma + TMA.
@@ -423,8 +423,9 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """Residual block on the trunk conv: conv -> IN -> ReLU -> conv -> IN,
-    plus the input. NHWC; weights HWIO, biases float32."""
+    plus the input. NHWC; weights HWIO, biases float32. Each IN is
+    ``ops/kernels/instance_norm.py``'s, the first with its ReLU fused."""
     h1 = reflect_conv3x3(x, w1, b1)
-    a1 = torch.relu(instance_norm(h1, eps))
+    a1 = instance_norm(h1, eps, relu=True)
     h2 = reflect_conv3x3(a1, w2, b2)
     return x + instance_norm(h2, eps)

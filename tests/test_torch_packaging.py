@@ -187,7 +187,7 @@ def test_cyclegan_console_script_resolves(pyproject):
 
 
 KERNELS = ["reflect_conv3x3", "reflect_conv3x3_dx", "reflect_conv3x3_dw", "spatial_attention",
-           "spatial_attention_dkv", "spatial_attention_dq"]
+           "spatial_attention_dkv", "spatial_attention_dq", "instance_norm"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -221,7 +221,7 @@ def _c_parameters(source: str) -> tuple[str, list[str]]:
 def _wrapper_argtypes(monkeypatch) -> dict:
     """What every loader of the kernel wrappers asks of ``load_library``:
     library name -> (symbol, ctypes argtypes, restype), without building."""
-    from gan_variant_research_tpu_torch.ops.kernels import _build, resblock
+    from gan_variant_research_tpu_torch.ops.kernels import _build, instance_norm, resblock
     from gan_variant_research_tpu_torch.ops.kernels import spatial_attention
 
     asked = {}
@@ -236,7 +236,7 @@ def _wrapper_argtypes(monkeypatch) -> dict:
             return fn
 
     monkeypatch.setattr(_build, "load_library", Library)
-    for module in (resblock, spatial_attention):
+    for module in (resblock, spatial_attention, instance_norm):
         for attr in dir(module):
             loader = getattr(module, attr)
             if attr.endswith("_fn") and hasattr(loader, "__wrapped__"):
