@@ -220,6 +220,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -243,7 +244,7 @@ CYCLEGAN_SHAPES = tuple((n, 64, 64, 256) for n in CYCLEGAN_BATCHES)
 
 # The keys of gan_variant_research_tpu/configs/train_gan_cutpp.yaml that the
 # train step reads (core/config.py::STEP_KEYS); tests/test_torch_cut_parts.py
-# holds this dict against the YAML. The machine with the card has no PyYAML.
+# holds this dict against the YAML.
 FLAGSHIP_CUT = {
     "image_size": 256, "batch_size": 12, "seed": 42, "warmup_steps": 20000,
     "grad_clip_g": 10.0, "grad_clip_d": 10.0,
@@ -404,9 +405,8 @@ def route_counts(resblock) -> dict:
     ``trace.COUNTS``."""
     from gan_variant_research_tpu_torch.core import trace
 
-    return {op: {r: trace.COUNTS.get(f"trunk.{op}.{r}", 0) for r in routes}
-            for op, routes in (("fwd", resblock.FWD_ROUTES), ("dx", resblock.DX_ROUTES),
-                               ("dw", resblock.DW_ROUTES))}
+    return {op: {r: trace.COUNTS.get(f"trunk.{op}.{r}", 0) for r in resblock.TRUNK_ROUTES}
+            for op in ("fwd", "dx", "dw")}
 
 
 def counts(resblock) -> tuple[int, int, int]:
@@ -462,14 +462,9 @@ def before_instance_norm(name: str) -> bool:
 # --------------------------------------------------------------------------- #
 
 def phase_build() -> None:
-    from gan_variant_research_tpu_torch.ops.kernels import _build, resblock
-    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
-    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention as sa
+    from gan_variant_research_tpu_torch.ops.kernels import _build
 
-    builds = {"reflect_conv3x3": resblock._forward_fn, "reflect_conv3x3_dx": resblock._dx_fn,
-              "reflect_conv3x3_dw": resblock._dw_fn, "spatial_attention": sa._forward_fn,
-              "spatial_attention_dkv": sa._dkv_fn, "spatial_attention_dq": sa._dq_fn,
-              "instance_norm": inm._norm_fn}
+    builds = {name: functools.partial(_build.kernel, name) for name in _build.KERNELS}
 
     def timed(fn):
         t = time.perf_counter()
@@ -522,7 +517,7 @@ def phase_kernels(gen) -> dict:
     case_gen = lambda shape: cg_gen if shape in CYCLEGAN_SHAPES else gen  # noqa: E731
     for shape, c_out, dtype in cases:
         x, w, b = conv_inputs(shape, c_out, dtype, case_gen(shape))
-        route = resblock.fwd_route(shape, c_out, dtype)
+        route = resblock.trunk_route(dtype)
         before = route_counts(resblock)["fwd"]
         y = resblock.reflect_conv3x3(x, w, b)
         y2 = resblock.reflect_conv3x3(x, w, b)
@@ -569,8 +564,7 @@ def phase_kernels(gen) -> dict:
         x, w, _ = conv_inputs(shape, c_out, dtype, case_gen(shape))
         dy = torch.randn(shape[:3] + (c_out,), device="cuda",
                          generator=case_gen(shape)).to(dtype)
-        route = resblock.dx_route(dy.shape, shape[3], dtype)
-        dw_route = resblock.dw_route(shape, c_out, dtype)
+        route = resblock.trunk_route(dtype)
         label = dict(shape="x".join(map(str, shape)), c_out=c_out, dtype=str(dtype).split(".")[-1])
 
         before = route_counts(resblock)["dx"]
@@ -600,15 +594,15 @@ def phase_kernels(gen) -> dict:
         dw = resblock.reflect_conv3x3_dw(x, dy)
         dw2 = resblock.reflect_conv3x3_dw(x, dy)
         torch.cuda.synchronize()
-        check(route_counts(resblock)["dw"][dw_route] - before[dw_route] == 2,
-              f"dw {shape} {dtype}: not launched on {dw_route}")
+        check(route_counts(resblock)["dw"][route] - before[route] == 2,
+              f"dw {shape} {dtype}: not launched on {route}")
         r = resblock.reflect_conv3x3_dw_reference(x, dy)
         check(dw.dtype == torch.float32 and dw.shape == r.shape, f"dw {shape} {dtype}: bad output")
         # float32 sums over N*H*W products in another order
         d = (dw - r).abs()
         rel = float(d.max() / r.abs().max())
         errs[("dw", shape, dtype)] = float(d.max())
-        phase("kernel", name="reflect_conv3x3_dw", route=dw_route, **label,
+        phase("kernel", name="reflect_conv3x3_dw", route=route, **label,
               max_abs_err=f"{d.max().item():.3e}",
               rel_to_max=f"{rel:.3e}", bitwise_repeatable=bool(torch.equal(dw, dw2)))
         check(rel <= 1e-4, f"reflect_conv3x3_dw {shape} {dtype}: {rel} of max over 1e-4")
@@ -1110,7 +1104,7 @@ def phase_timing(gen, rng, net, trainer, state, batches):
         main_us = kernel_device_us(kernel, 10, {"main": "fwd_main_wgmma"})["main"]
         flop = 2 * 9 * int(np.prod(shape)) * 256
         phase("timing", op="reflect_conv3x3", shape="x".join(map(str, shape)), dtype="bf16",
-              route=resblock.fwd_route(shape, 256, torch.bfloat16),
+              route=resblock.trunk_route(torch.bfloat16),
               kernel_ms=f"{k1:.4f}/{k2:.4f}", plain_ms=f"{p1:.4f}/{p2:.4f}",
               cudnn_bf16_ms=f"{lib:.4f}", main_us=f"{main_us:.2f}",
               kernel_tflops=f"{flop / conv_ms[shape[0]]['kernel'] / 1e9:.2f}",
@@ -1148,7 +1142,7 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     parts = kernel_device_us(lambda: resblock.reflect_conv3x3_dx(dy, w), 10,
                              {"frame": "dx_frame_mma", "main": "dx_main_wgmma", "fold": "dx_fold"})
     phase("timing", op="reflect_conv3x3_dx_parts", shape="x".join(map(str, TRAIN_SHAPE)),
-          dtype="bf16", route=resblock.dx_route(dy.shape, w.shape[2], dy.dtype),
+          dtype="bf16", route=resblock.trunk_route(dy.dtype),
           **{f"{k}_us": f"{v:.2f}" for k, v in parts.items()},
           main_tflops=f"{flop / parts['main'] / 1e6:.2f}")
     # dw's kernels apart (its route for the trunk: the partials' wgmma pass,
@@ -1156,7 +1150,7 @@ def phase_timing(gen, rng, net, trainer, state, batches):
     parts = kernel_device_us(lambda: resblock.reflect_conv3x3_dw(x, dy), 10,
                              {"main": "dw_partial_wgmma", "reduce": "dw_reduce"})
     phase("timing", op="reflect_conv3x3_dw_parts", shape="x".join(map(str, TRAIN_SHAPE)),
-          dtype="bf16", route=resblock.dw_route(x.shape, dy.shape[3], x.dtype),
+          dtype="bf16", route=resblock.trunk_route(x.dtype),
           **{f"{k}_us": f"{v:.2f}" for k, v in parts.items()},
           main_tflops=f"{flop / parts['main'] / 1e6:.2f}")
 
@@ -2806,8 +2800,8 @@ CG_SERVE_PHOTOS = 32
 
 
 def cyclegan_config(name: str, **model) -> dict:
-    """The port's copy of a shipped CycleGAN config (read with the port's own
-    YAML reader), ``model`` keys overridden."""
+    """The port's copy of a shipped CycleGAN config (read by the port's
+    ``load_config``), ``model`` keys overridden."""
     from gan_variant_research_tpu_torch.core.config import load_config
 
     cfg = load_config(CYCLEGAN_CONFIGS / name)

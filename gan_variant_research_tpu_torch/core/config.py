@@ -1,16 +1,11 @@
-"""CUT configs: the YAML reader, ``--set`` overrides, schema validation and
-the keys the port's train step reads.
+"""CUT configs: loading, ``--set`` overrides, schema validation and the keys
+the port's train step reads.
 
 Counterpart of ``gan_variant_research_tpu/core/config.py`` (``ConfigError``,
 ``load_config``, ``_coerce``, ``override_config``, ``validate_config``,
-``deep_update``, ``CUT_SCHEMA``, ``CYCLEGAN_SCHEMA``). The machine with the card has no PyYAML:
-``load_config`` reads YAML with ``parse_yaml``, a reader of the subset the
-JAX package's ``configs/*.yaml`` use (block mappings and sequences by
-indentation, ``#`` comments, one-line flow sequences and mappings, plain and
-quoted scalars) that resolves scalars as ``yaml.safe_load`` does (YAML 1.1:
-``yes``/``on`` are booleans, ``~`` is null, a float needs its dot). It
-refuses what it does not read (anchors, tags, block scalars, multi-line
-flow collections).
+``deep_update``, ``CUT_SCHEMA``, ``CYCLEGAN_SCHEMA``). YAML is read with
+``yaml.safe_load``, as there; PyYAML is imported inside the two functions
+that read it, so importing the port does not load it.
 
 ``STEP_KEYS`` lists, as dotted paths, every key ``train/cut_trainer.py``
 reads; ``get`` reads one with its default.
@@ -19,274 +14,21 @@ reads; ``get`` reads one with its default.
 from __future__ import annotations
 
 import copy
-import re
 import warnings
 from pathlib import Path
 from typing import Any, Mapping
 
 
 class ConfigError(ValueError):
-    """Raised for invalid configs (unknown keys in strict mode, bad types,
-    YAML outside the reader's subset)."""
-
-
-# --------------------------------------------------------------------------- #
-# the YAML subset
-
-# PyYAML's implicit resolvers (yaml/resolver.py), sexagesimal forms left out
-_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
-                   r"|on|On|ON|off|Off|OFF)$")
-_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
-                  r"|[-+]?0x[0-9a-fA-F_]+)$")
-_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-_SEXAGESIMAL = re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")
-
-
-def _plain(text: str) -> Any:
-    """A plain scalar, resolved as PyYAML's SafeLoader resolves it."""
-    if _NULL.match(text):
-        return None
-    if _BOOL.match(text):
-        return text.lower() in ("yes", "true", "on")
-    if _SEXAGESIMAL.match(text):
-        raise ConfigError(f"sexagesimal number {text!r} is outside the YAML subset read here")
-    if _INT.match(text):
-        t = text.replace("_", "")
-        sign = -1 if t[0] == "-" else 1
-        t = t.lstrip("+-")
-        if t.startswith("0b"):
-            return sign * int(t[2:], 2)
-        if t.startswith("0x"):
-            return sign * int(t[2:], 16)
-        if t != "0" and t.startswith("0"):
-            return sign * int(t, 8)
-        return sign * int(t)
-    if _FLOAT.match(text):
-        t = text.replace("_", "").lower()
-        if t.endswith(".inf"):
-            return float("-inf") if t[0] == "-" else float("inf")
-        if t.endswith(".nan"):
-            return float("nan")
-        return float(t)
-    if text[:1] in "&*!|>%@`":
-        raise ConfigError(f"YAML feature in {text!r} is outside the subset read here")
-    return text
-
-
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n",
-            "v": "\v", "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"',
-            "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0"}
-
-
-class _Flow:
-    """One line's scalar or flow collection, read left to right."""
-
-    def __init__(self, text: str, where: str):
-        self.s, self.i, self.where = text, 0, where
-
-    def fail(self, what: str):
-        raise ConfigError(f"{self.where}: {what} in {self.s!r}")
-
-    def ws(self):
-        while self.i < len(self.s) and self.s[self.i] in " \t":
-            self.i += 1
-
-    def quoted(self) -> str:
-        q = self.s[self.i]
-        self.i += 1
-        out = []
-        while self.i < len(self.s):
-            c = self.s[self.i]
-            if c == q:
-                if q == "'" and self.s[self.i + 1:self.i + 2] == "'":
-                    out.append("'")
-                    self.i += 2
-                    continue
-                self.i += 1
-                return "".join(out)
-            if c == "\\" and q == '"':
-                e = self.s[self.i + 1:self.i + 2]
-                if e in _ESCAPES:
-                    out.append(_ESCAPES[e])
-                    self.i += 2
-                    continue
-                n = {"x": 2, "u": 4, "U": 8}.get(e)
-                if n is None:
-                    self.fail(f"unknown escape \\{e}")
-                out.append(chr(int(self.s[self.i + 2:self.i + 2 + n], 16)))
-                self.i += 2 + n
-                continue
-            out.append(c)
-            self.i += 1
-        self.fail("unterminated quoted scalar")
-
-    def value(self, in_flow: bool) -> Any:
-        self.ws()
-        if self.i >= len(self.s):
-            return None
-        c = self.s[self.i]
-        if c == "[":
-            return self.sequence()
-        if c == "{":
-            return self.mapping()
-        if c in "'\"":
-            return self.quoted()
-        stops = ",]}" if in_flow else ""
-        j = self.i
-        while j < len(self.s) and self.s[j] not in stops and not (
-                in_flow and self.s[j] == ":" and self.s[j + 1:j + 2] in (" ", ",", "]", "}", "")):
-            j += 1
-        text, self.i = self.s[self.i:j].strip(), j
-        return _plain(text)
-
-    def sequence(self) -> list:
-        self.i += 1
-        out = []
-        while True:
-            self.ws()
-            if self.s[self.i:self.i + 1] == "]":
-                self.i += 1
-                return out
-            out.append(self.value(True))
-            self.ws()
-            c = self.s[self.i:self.i + 1]
-            if c == ",":
-                self.i += 1
-            elif c != "]":
-                self.fail("expected ',' or ']'")
-
-    def mapping(self) -> dict:
-        self.i += 1
-        out = {}
-        while True:
-            self.ws()
-            if self.s[self.i:self.i + 1] == "}":
-                self.i += 1
-                return out
-            key = self.value(True)
-            self.ws()
-            if self.s[self.i:self.i + 1] != ":":
-                self.fail("expected ':' in a flow mapping")
-            self.i += 1
-            out[key] = self.value(True)
-            self.ws()
-            c = self.s[self.i:self.i + 1]
-            if c == ",":
-                self.i += 1
-            elif c != "}":
-                self.fail("expected ',' or '}'")
-
-    def whole(self) -> Any:
-        v = self.value(False)
-        self.ws()
-        if self.i != len(self.s):
-            self.fail("text after the value")
-        return v
-
-
-def _strip_comment(line: str) -> str:
-    """``line`` without its ``#`` comment (a ``#`` at the start or after a
-    blank, outside quotes)."""
-    quote = None
-    for i, c in enumerate(line):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "'\"":
-            quote = c
-        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i].rstrip()
-    return line.rstrip()
-
-
-def _split_key(text: str, where: str):
-    """``key: rest`` -> (key, rest), or None when ``text`` is no mapping
-    entry."""
-    if text[:1] in "'\"":
-        f = _Flow(text, where)
-        key = f.quoted()
-        rest = text[f.i:]
-        if not rest.startswith(":") or rest[1:2] not in ("", " "):
-            return None
-        return key, rest[1:].strip()
-    m = re.match(r"^([^:#\[\]{},]+?):(?:\s+|$)(.*)$", text)
-    if m is None:
-        return None
-    return _plain(m.group(1).strip()), m.group(2)
-
-
-def parse_yaml(text: str, name: str = "<yaml>") -> Any:
-    """The document in ``text`` as ``yaml.safe_load`` gives it, for the
-    subset described above."""
-    lines = []
-    for n, raw in enumerate(text.splitlines(), 1):
-        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
-            raise ConfigError(f"{name}:{n}: tab in indentation")
-        body = _strip_comment(raw)
-        if body.strip() in ("", "---"):
-            continue
-        lines.append((n, len(body) - len(body.lstrip()), body.strip()))
-    pos = 0
-
-    def block(indent: int) -> Any:
-        nonlocal pos
-        n, ind, body = lines[pos]
-        if body.startswith("- ") or body == "-":
-            out = []
-            while pos < len(lines) and lines[pos][1] == indent and (
-                    lines[pos][2].startswith("- ") or lines[pos][2] == "-"):
-                n, ind, body = lines[pos]
-                item = body[1:].strip()
-                pos += 1
-                if item:
-                    if _split_key(item, f"{name}:{n}") is not None:
-                        raise ConfigError(f"{name}:{n}: a mapping inside a block sequence "
-                                          "is outside the subset read here")
-                    out.append(_Flow(item, f"{name}:{n}").whole())
-                else:
-                    out.append(nested(indent))
-            return out
-        out = {}
-        while pos < len(lines) and lines[pos][1] == indent:
-            n, ind, body = lines[pos]
-            kv = _split_key(body, f"{name}:{n}")
-            if kv is None:
-                raise ConfigError(f"{name}:{n}: expected 'key: value', got {body!r}")
-            key, rest = kv
-            pos += 1
-            if key in out:
-                raise ConfigError(f"{name}:{n}: duplicate key {key!r}")
-            out[key] = _Flow(rest, f"{name}:{n}").whole() if rest else nested(indent)
-        return out
-
-    def nested(indent: int) -> Any:
-        """The block under an entry: deeper lines, or a sequence at the same
-        indentation (YAML lets ``- `` items sit under their key); else
-        null."""
-        if pos < len(lines):
-            n, ind, body = lines[pos]
-            if ind > indent or (ind == indent and (body.startswith("- ") or body == "-")):
-                return block(ind)
-        return None
-
-    if not lines:
-        return None
-    if len(lines) == 1 and _split_key(lines[0][2], name) is None and not (
-            lines[0][2].startswith("- ")):
-        return _Flow(lines[0][2], f"{name}:{lines[0][0]}").whole()
-    root = block(lines[0][1])
-    if pos != len(lines):
-        n, ind, body = lines[pos]
-        raise ConfigError(f"{name}:{n}: unexpected indentation at {body!r}")
-    return root
+    """Raised for invalid configs (unknown keys in strict mode, bad types)."""
 
 
 def load_config(path: str | Path) -> dict:
     """Load a YAML config file into a plain nested dict."""
-    cfg = parse_yaml(Path(path).read_text(), str(path))
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
     if cfg is None:
         cfg = {}
     if not isinstance(cfg, dict):
@@ -317,9 +59,11 @@ def _coerce(value: str) -> Any:
         pass
     if value.startswith("[") and value.endswith("]"):
         # list values (e.g. --set model.generator.attn_layers=[1,3])
+        import yaml
+
         try:
-            parsed = parse_yaml(value)
-        except ConfigError:
+            parsed = yaml.safe_load(value)
+        except yaml.YAMLError:
             return value
         if isinstance(parsed, list) and all(
                 isinstance(x, (bool, int, float, str)) or x is None for x in parsed):

@@ -27,8 +27,6 @@ replay counts none.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import struct
 
 import torch
@@ -36,27 +34,12 @@ from torch.autograd.function import once_differentiable
 
 from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.ops import nn_ops
+from gan_variant_research_tpu_torch.ops.kernels import _build
 
 ROUTES = ("kernel", "plain")
 # csrc/instance_norm.cu's block layout: threads, channel vectors and rows in
 # flight a thread, and the streaming kernels' blocks an SM (64 registers)
 _THREADS, _TX_MAX, _UNROLL, _BLOCKS_PER_SM = 256, 32, 4, 4
-_GRID_Z_MAX = 65535
-
-
-@functools.cache
-def _norm_fn():
-    from gan_variant_research_tpu_torch.ops.kernels._build import load_library
-
-    fn = load_library("instance_norm").instance_norm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def norm_route(x: torch.Tensor) -> str:
@@ -143,24 +126,21 @@ def backward_terms(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, relu: 
 
 def _launch(x, g, stats, out, eps: float, relu: bool, backward: bool) -> None:
     n, h, w, c = x.shape
-    splits = norm_splits(x.shape, _sm_count(x.device.index or 0))
+    splits = norm_splits(x.shape, _build.sm_count(x.device.index))
     # float32 scratch: the partial sums (N, S, 2, C), then the coefficients
     # (N, 4, C); torch.empty, so no fill lands on the card
     work = torch.empty(n * c * (2 * splits + 4), dtype=torch.float32, device=x.device)
     eps_bits = struct.unpack("<i", struct.pack("<f", eps))[0]
-    with torch.cuda.device(x.device):
-        err = _norm_fn()(x.data_ptr(), 0 if g is None else g.data_ptr(), work.data_ptr(),
-                         stats.data_ptr(), out.data_ptr(), n, h * w, c, splits, int(relu),
-                         int(backward), eps_bits, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"instance_norm ({'backward' if backward else 'forward'}) launch "
-                           f"failed: CUDA error {err}")
+    _build.launch("instance_norm", x.device, x.data_ptr(), 0 if g is None else g.data_ptr(),
+                  work.data_ptr(), stats.data_ptr(), out.data_ptr(), n, h * w, c, splits,
+                  int(relu), int(backward), eps_bits)
 
 
 def _launch_forward(x: torch.Tensor, eps: float, relu: bool):
     with trace.span("norm.fwd"):
-        if x.shape[0] > _GRID_Z_MAX:
-            raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit of {_GRID_Z_MAX}")
+        if x.shape[0] > _build.GRID_Z_MAX:
+            raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit of "
+                             f"{_build.GRID_Z_MAX}")
         x = x.contiguous()
         y = torch.empty_like(x)
         stats = torch.empty((x.shape[0], 2, x.shape[3]), dtype=torch.float32, device=x.device)

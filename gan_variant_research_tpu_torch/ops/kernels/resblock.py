@@ -6,78 +6,44 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
 - ``reflect_conv3x3(x, w, b)``: reflect-pad(1) + 3x3 valid conv + bias on
   NHWC tensors, differentiable through ``_ReflectConv3x3`` (a
   ``torch.autograd.Function``, the counterpart of the JAX ``custom_vjp``).
-  Its forward is ``csrc/reflect_conv3x3.cu`` on a CUDA tensor (one of the
-  routes ``FWD_ROUTES``, picked by ``fwd_route``) and
+  Its forward is ``csrc/reflect_conv3x3.cu`` on a CUDA tensor and
   ``reflect_conv3x3_reference`` on a CPU tensor; its backward is
   ``reflect_conv3x3_dx`` and ``reflect_conv3x3_dw``.
 - ``reflect_conv3x3_dx(dy, w)``: the input gradient, ``csrc/
-  reflect_conv3x3_dx.cu`` on CUDA (one of the routes ``DX_ROUTES``, picked
-  by ``dx_route``), ``reflect_conv3x3_dx_reference`` on CPU.
+  reflect_conv3x3_dx.cu`` on CUDA, ``reflect_conv3x3_dx_reference`` on CPU.
 - ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
-  reflect_conv3x3_dw.cu`` on CUDA (one of the routes ``DW_ROUTES``, picked
-  by ``dw_route``), ``reflect_conv3x3_dw_reference`` on CPU.
+  reflect_conv3x3_dw.cu`` on CUDA, ``reflect_conv3x3_dw_reference`` on CPU.
 - ``fused_resblock``: conv -> instance norm + ReLU -> conv -> instance norm
   -> residual add, NHWC.
 
 A CUDA tensor launches the kernel (built at first use) or raises; the plain
-versions serve CPU tensors. Each launch is counted in ``core/trace.py``'s
-``COUNTS`` under ``trunk.fwd.<route>``, ``trunk.dx.<route>`` or
-``trunk.dw.<route>``, and its wrapper's host side is the span
-``trunk.fwd``, ``trunk.dx`` or ``trunk.dw``.
+versions serve CPU tensors. Each kernel takes one of the routes
+``TRUNK_ROUTES``, which ``trunk_route`` picks by dtype alone. Each launch
+is counted in ``core/trace.py``'s ``COUNTS`` under ``trunk.fwd.<route>``,
+``trunk.dx.<route>`` or ``trunk.dw.<route>``, and its wrapper's host side
+is the span ``trunk.fwd``, ``trunk.dx`` or ``trunk.dw``.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gan_variant_research_tpu_torch.core import trace
+from gan_variant_research_tpu_torch.ops.kernels import _build
 from gan_variant_research_tpu_torch.ops.kernels.instance_norm import instance_norm
 
-# The forward kernel's routes, in the order of its ``route`` argument:
+# The trunk kernels' routes, in the order of their ``route`` argument:
 # float32 on FMA, bf16 on wgmma + TMA.
-FWD_ROUTES = ("f32_fma", "bf16_wgmma")
-# The dx kernel's routes, likewise.
-DX_ROUTES = ("f32_fma", "bf16_wgmma")
-# The dw kernel's routes, likewise.
-DW_ROUTES = ("f32_fma", "bf16_wgmma")
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_Z_MAX = 65535
-
-
-def _load(name: str, symbol: str, n_ptr: int, n_int: int):
-    from gan_variant_research_tpu_torch.ops.kernels._build import load_library
-
-    fn = getattr(load_library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _forward_fn():
-    return _load("reflect_conv3x3", "reflect_conv3x3_forward", 4, 6)
-
-
-@functools.cache
-def _dx_fn():
-    return _load("reflect_conv3x3_dx", "reflect_conv3x3_dx", 4, 6)
-
-
-@functools.cache
-def _dw_fn():
-    return _load("reflect_conv3x3_dw", "reflect_conv3x3_dw", 4, 7)
+TRUNK_ROUTES = ("f32_fma", "bf16_wgmma")
+_KERNELS = {"fwd": "reflect_conv3x3", "dx": "reflect_conv3x3_dx", "dw": "reflect_conv3x3_dw"}
 
 
 def _check_act(name: str, t: torch.Tensor) -> None:
     if t.dim() != 4:
         raise ValueError(f"{name} must be NHWC (4-D), got shape {tuple(t.shape)}")
-    if t.dtype not in _DTYPE_CODES:
+    if t.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if t.shape[1] < 2 or t.shape[2] < 2:
         raise ValueError(f"reflect padding needs H, W >= 2, got "
@@ -107,13 +73,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
 def _check_cuda(t: torch.Tensor) -> None:
     if not t.is_contiguous():
         raise ValueError("activations must be contiguous NHWC tensors")
-    if t.shape[0] > _GRID_Z_MAX:
-        raise ValueError(f"batch {t.shape[0]} exceeds the kernel's grid limit of {_GRID_Z_MAX}")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    if t.shape[0] > _build.GRID_Z_MAX:
+        raise ValueError(f"batch {t.shape[0]} exceeds the kernel's grid limit of "
+                         f"{_build.GRID_Z_MAX}")
 
 
 # --------------------------------------------------------------------------- #
@@ -185,90 +147,69 @@ def reflect_conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Ten
 # --------------------------------------------------------------------------- #
 # kernel wrappers: plain version on a CPU tensor, the kernel on a CUDA tensor
 
-def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    with trace.span("trunk.fwd"):
-        _check_cuda(x)
-        c_out = w.shape[3]
-        route = fwd_route(x.shape, c_out, x.dtype)
-        w = w.to(x.dtype).contiguous()
-        b = b.float().contiguous()
-        if route == "bf16_wgmma":
-            # channels of 8; the tensor maps need 16-byte aligned bases
-            x, w, b = pad_fwd_channels(x, w, b)
-            x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
-        n, h, width, c_in_k = x.shape
-        c_out_k = w.shape[3]
-        y = torch.empty((n, h, width, c_out_k), dtype=x.dtype, device=x.device)
-        fn = _forward_fn()
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                     n, h, width, c_in_k, c_out_k, FWD_ROUTES.index(route),
-                     torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, f"reflect_conv3x3 ({route})")
-        trace.count(f"trunk.fwd.{route}")
-        return y if c_out_k == c_out else y[..., :c_out].contiguous()
-
-
-def _route(dtype: torch.dtype, what: str) -> str:
+def trunk_route(dtype: torch.dtype) -> str:
+    """The trunk kernels' route for ``dtype``: float32 on FMA, bf16 on wgmma
+    + TMA (channel counts that are not multiples of 8 are zero-padded to
+    them, ``pad_channels``)."""
     if dtype == torch.float32:
         return "f32_fma"
     if dtype != torch.bfloat16:
-        raise TypeError(f"{what} must be float32 or bfloat16, got {dtype}")
+        raise TypeError(f"the trunk kernels take float32 or bfloat16, got {dtype}")
     return "bf16_wgmma"
 
 
-def fwd_route(x_shape, c_out: int, dtype: torch.dtype) -> str:
-    """The route of ``csrc/reflect_conv3x3.cu`` for an input of ``x_shape``
-    (N, H, W, Cin) and ``dtype`` with ``c_out`` output channels: float32 on
-    FMA, bf16 on wgmma + TMA (channel counts that are not multiples of 8 are
-    zero-padded to them, ``pad_fwd_channels``)."""
-    return _route(dtype, "x")
+def pad_channels(t: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``t`` with each axis in ``dims`` zero-padded at its end to a multiple
+    of 8, as the wgmma route's tensor maps need (16-byte rows); ``t`` itself
+    where no axis needs it. The zeros add nothing to the float32 sums, so a
+    kernel's output on padded operands, sliced back to the real channel
+    counts, is its output on the operands."""
+    pad = [0] * (2 * t.dim())
+    for d in dims:
+        pad[2 * (t.dim() - 1 - d) + 1] = -t.shape[d] % 8
+    return F.pad(t, pad) if any(pad) else t
 
 
-def pad_fwd_channels(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """x (N, H, W, Cin), w (3, 3, Cin, Cout) and b (Cout,) zero-padded so that
-    Cin and Cout are multiples of 8, as the wgmma route's tensor maps need
-    (16-byte rows); unpadded tensors come back as they are. The zeros add
-    nothing to the float32 sums, so the first Cout channels of the padded
-    conv are the conv."""
-    p_in, p_out = -w.shape[2] % 8, -w.shape[3] % 8
-    if p_in:
-        x = F.pad(x, (0, p_in))
-    if p_in or p_out:
-        w = F.pad(w, (0, p_out, 0, p_in))
-    if p_out:
-        b = F.pad(b, (0, p_out))
-    return x, w, b
+def _launch(kind: str, acts, operands, want, setup) -> torch.Tensor:
+    """What the three trunk kernels' wrappers share, inside their span: the
+    activations ``acts`` checked, the route, on the wgmma route each
+    operand's channel axes (``operands`` holds (tensor, axes) pairs)
+    zero-padded to 8 and its 4-D tensors given the 16-byte aligned bases the
+    tensor maps need, then ``setup(route, *operands) -> (out, tensors,
+    ints)`` for what is the kernel's own, the launch on ``tensors``' pointers
+    and ``ints``, its count, and ``out`` with the padding sliced off to the
+    shape ``want``."""
+    for t in acts:
+        _check_cuda(t)
+    route = trunk_route(acts[0].dtype)
+    if route == "bf16_wgmma":
+        ts = [pad_channels(t, *dims) for t, dims in operands]
+        ts = [t if t.dim() != 4 or t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+    else:
+        ts = [t for t, _ in operands]
+    out, tensors, ints = setup(route, *ts)
+    _build.launch(_KERNELS[kind], out.device, *(t.data_ptr() for t in tensors), *ints,
+                  TRUNK_ROUTES.index(route))
+    trace.count(f"trunk.{kind}.{route}")
+    return out if out.shape == want else out[tuple(map(slice, want))].contiguous()
 
 
-def dx_route(dy_shape, c_in: int, dtype: torch.dtype) -> str:
-    """The route of ``csrc/reflect_conv3x3_dx.cu`` for a cotangent of
-    ``dy_shape`` (N, H, W, Cout) and ``dtype`` with ``c_in`` input channels:
-    float32 on FMA, bf16 on wgmma + TMA (channel counts that are not
-    multiples of 8 are zero-padded to them, ``pad_dx_channels``)."""
-    return _route(dtype, "dy")
+def _launch_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def setup(route, x, w, b):
+        y = torch.empty(x.shape[:3] + (w.shape[3],), dtype=x.dtype, device=x.device)
+        return y, (x, w, b, y), (*x.shape, w.shape[3])
 
-
-def pad_dx_channels(dy: torch.Tensor, w: torch.Tensor):
-    """dy (N, H, W, Cout) and w (3, 3, Cin, Cout) zero-padded so that Cin and
-    Cout are multiples of 8, as the wgmma route's tensor maps need (16-byte
-    rows); unpadded tensors come back as they are. The zeros add nothing to
-    the float32 sums, so the first Cin channels of the padded input gradient
-    are the input gradient."""
-    c_in, c_out = w.shape[2], w.shape[3]
-    p_in, p_out = -c_in % 8, -c_out % 8
-    if p_out:
-        dy = F.pad(dy, (0, p_out))
-    if p_in or p_out:
-        w = F.pad(w, (0, p_out, 0, p_in))
-    return dy, w
+    with trace.span("trunk.fwd"):
+        return _launch("fwd", (x,), ((x, (3,)), (w.to(x.dtype).contiguous(), (2, 3)),
+                                     (b.float().contiguous(), (0,))),
+                       x.shape[:3] + (w.shape[3],), setup)
 
 
 def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of ``reflect_conv3x3`` for the cotangent ``dy``
     (N, H, W, Cout) and the HWIO kernel ``w``; returns (N, H, W, Cin) in
     dy's dtype. On CUDA it launches ``csrc/reflect_conv3x3_dx.cu`` on the
-    current stream, on the route ``dx_route`` picks; on the CPU it is
+    current stream, on the route ``trunk_route`` picks; on the CPU it is
     ``reflect_conv3x3_dx_reference``."""
     _check_dx(dy, w)
     if dy.device.type == "cpu":
@@ -277,50 +218,22 @@ def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    with trace.span("trunk.dx"):
-        _check_cuda(dy)
+    def setup(route, dy, wk):
         n, h, width, c_out = dy.shape
-        c_in = w.shape[2]
-        route = dx_route(dy.shape, c_in, dy.dtype)
-        if route == "bf16_wgmma":
-            # (3, 3, Cin, Cout), channels of 8; the tensor maps need 16-byte
-            # aligned bases
-            dy, wk = pad_dx_channels(dy, w.to(dy.dtype))
-            dy, wk = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (dy, wk.contiguous()))
-            c_in_k, c_out = wk.shape[2], wk.shape[3]
-        else:
-            wk = w.to(dy.dtype).flip(0, 1).transpose(2, 3).contiguous()      # (3, 3, Cout, Cin)
-            c_in_k = c_in
+        if route == "f32_fma":
+            wk = wk.flip(0, 1).transpose(2, 3).contiguous()      # (3, 3, Cout, Cin)
+        c_in_k = wk.shape[2] if route == "bf16_wgmma" else wk.shape[3]
         # float32 scratch: the padded frame of the input gradient, then (wgmma
         # route) the interior sums of the pixels the fold reaches
         rows = 2 * (width + 2) + 2 * h + (2 * width + 2 * h if route == "bf16_wgmma" else 0)
         frame = torch.empty((n, rows, c_in_k), dtype=torch.float32, device=dy.device)
         dx = torch.empty((n, h, width, c_in_k), dtype=dy.dtype, device=dy.device)
-        fn = _dx_fn()
-        with torch.cuda.device(dy.device):
-            err = fn(dy.data_ptr(), wk.data_ptr(), frame.data_ptr(), dx.data_ptr(),
-                     n, h, width, c_in_k, c_out, DX_ROUTES.index(route),
-                     torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, f"reflect_conv3x3_dx ({route})")
-        trace.count(f"trunk.dx.{route}")
-        return dx if c_in_k == c_in else dx[..., :c_in].contiguous()
+        return dx, (dy, wk, frame, dx), (n, h, width, c_in_k, c_out)
 
-
-def dw_route(x_shape, c_out: int, dtype: torch.dtype) -> str:
-    """The route of ``csrc/reflect_conv3x3_dw.cu`` for an input of
-    ``x_shape`` (N, H, W, Cin) and ``dtype`` with ``c_out`` output channels:
-    float32 on FMA, bf16 on wgmma + TMA (channel counts that are not
-    multiples of 8 are zero-padded to them, ``pad_dw_channels``)."""
-    return _route(dtype, "x")
-
-
-def pad_dw_channels(x: torch.Tensor, dy: torch.Tensor):
-    """x (N, H, W, Cin) and dy (N, H, W, Cout) zero-padded so that Cin and
-    Cout are multiples of 8, as the wgmma route's tensor maps need (16-byte
-    rows); unpadded tensors come back as they are. The zeros add nothing to
-    the float32 sums, so dw[:, :, :Cin, :Cout] of the padded pair is dw."""
-    p_in, p_out = -x.shape[3] % 8, -dy.shape[3] % 8
-    return (F.pad(x, (0, p_in)) if p_in else x), (F.pad(dy, (0, p_out)) if p_out else dy)
+    with trace.span("trunk.dx"):
+        # w as (3, 3, Cin, Cout) in dy's dtype
+        return _launch("dx", (dy,), ((dy, (3,)), (w.to(dy.dtype).contiguous(), (2, 3))),
+                       dy.shape[:3] + (w.shape[2],), setup)
 
 
 def dw_splits(x_shape, c_out: int, sm_count: int, route: str) -> int:
@@ -335,7 +248,7 @@ def dw_splits(x_shape, c_out: int, sm_count: int, route: str) -> int:
         want = sm_count // (3 * -(-c_in // 128) * -(-c_out // 128))
     else:
         want = -(-4 * sm_count // (3 * -(-c_in // 64) * -(-c_out // 64)))
-    return max(1, min(segments, want, _GRID_Z_MAX // 3))
+    return max(1, min(segments, want, _build.GRID_Z_MAX // 3))
 
 
 def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -343,7 +256,7 @@ def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     cotangent ``dy`` (same dtype); returns (3, 3, Cin, Cout) float32, the
     same bits from run to run. On CUDA it launches
     ``csrc/reflect_conv3x3_dw.cu`` on the current stream, on the route
-    ``dw_route`` picks; on the CPU it is ``reflect_conv3x3_dw_reference``."""
+    ``trunk_route`` picks; on the CPU it is ``reflect_conv3x3_dw_reference``."""
     _check_dw(x, dy)
     if x.device.type == "cpu":
         return reflect_conv3x3_dw_reference(x, dy)
@@ -351,31 +264,16 @@ def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    with trace.span("trunk.dw"):
-        _check_cuda(x)
-        _check_cuda(dy)
+    def setup(route, x, dy):
         c_in, c_out = x.shape[3], dy.shape[3]
-        route = dw_route(x.shape, c_out, x.dtype)
-        if route == "bf16_wgmma":
-            # channels of 8; the tensor maps need 16-byte aligned bases
-            x, dy = pad_dw_channels(x, dy)
-            x, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dy))
-        n, h, width, c_in_k = x.shape
-        c_out_k = dy.shape[3]
-        splits = dw_splits(x.shape, c_out_k,
-                           torch.cuda.get_device_properties(x.device).multi_processor_count, route)
-        part = torch.empty((splits, 3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
-        dw = torch.empty((3, 3, c_in_k, c_out_k), dtype=torch.float32, device=x.device)
-        fn = _dw_fn()
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                     n, h, width, c_in_k, c_out_k, splits, DW_ROUTES.index(route),
-                     torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, f"reflect_conv3x3_dw ({route})")
-        trace.count(f"trunk.dw.{route}")
-        if (c_in_k, c_out_k) == (c_in, c_out):
-            return dw
-        return dw[:, :, :c_in, :c_out].contiguous()
+        splits = dw_splits(x.shape, c_out, _build.sm_count(x.device.index), route)
+        part = torch.empty((splits, 3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+        dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+        return dw, (x, dy, part, dw), (*x.shape, c_out, splits)
+
+    with trace.span("trunk.dw"):
+        return _launch("dw", (x, dy), ((x, (3,)), (dy, (3,))),
+                       (3, 3, x.shape[3], dy.shape[3]), setup)
 
 
 class _ReflectConv3x3(torch.autograd.Function):

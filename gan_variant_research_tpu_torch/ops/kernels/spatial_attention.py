@@ -64,51 +64,24 @@ and on the card, never called on the main path.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from gan_variant_research_tpu_torch.core import trace
+from gan_variant_research_tpu_torch.ops.kernels import _build
 
 ATTN_ROUTES = ("direct", "padded", "split", "einsum")
 KERNEL_ROUTES = ATTN_ROUTES[:3]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_DQK, _MAX_DV, _MAX_BATCH = 128, 256, 65535
-
-
-def _load(name: str, symbol: str, n_ptr: int, n_int: int):
-    from gan_variant_research_tpu_torch.ops.kernels._build import load_library
-
-    fn = getattr(load_library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _forward_fn():
-    return _load("spatial_attention", "spatial_attention_forward", 5, 5)
-
-
-@functools.cache
-def _dkv_fn():
-    return _load("spatial_attention_dkv", "spatial_attention_dkv", 8, 5)
-
-
-@functools.cache
-def _dq_fn():
-    return _load("spatial_attention_dq", "spatial_attention_dq", 7, 5)
+_MAX_DQK, _MAX_DV = 128, 256
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
         raise ValueError(f"q, k must be (B, n, d_qk) and v (B, n, d_v), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     devs = {str(t.device) for t in (q, k, v)}
@@ -130,21 +103,12 @@ def _check_cuda(*ts: torch.Tensor, max_dv: int = _MAX_DV) -> None:
     if not (8 <= dqk <= _MAX_DQK and dqk % 8 == 0 and 8 <= dv <= max_dv and dv % 8 == 0):
         raise ValueError(f"the attention kernels take d_qk in [8, {_MAX_DQK}] and d_v in "
                          f"[8, {max_dv}], multiples of 8; got d_qk={dqk}, d_v={dv}")
-    if not 1 <= b <= _MAX_BATCH or n < 1:
-        raise ValueError(f"the attention kernels take 1 <= B <= {_MAX_BATCH} and n >= 1, "
+    if not 1 <= b <= _build.GRID_Z_MAX or n < 1:
+        raise ValueError(f"the attention kernels take 1 <= B <= {_build.GRID_Z_MAX} and n >= 1, "
                          f"got B={b}, n={n}")
     for t in ts:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("the attention kernels take contiguous, 16-byte aligned tensors")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # --------------------------------------------------------------------------- #
@@ -245,11 +209,8 @@ def spatial_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dv = v.shape[2]
         o = torch.empty((b, n, dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
-        fn = _forward_fn()
-        with torch.cuda.device(q.device):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                     b, n, dqk, dv, _DTYPE_CODES[q.dtype], _stream(q))
-        _raise_on(err, "spatial_attention")
+        _build.launch("spatial_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), lse.data_ptr(), b, n, dqk, dv, _build.DTYPE_CODES[q.dtype])
         trace.count(f"attn.fwd.{route}")
         return o, lse
 
@@ -278,12 +239,9 @@ def spatial_attention_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Ten
         b, n, dqk = q.shape
         dv = v.shape[2]
         dk, dv_out = torch.empty_like(k), torch.empty_like(v)
-        fn = _dkv_fn()
-        with torch.cuda.device(q.device):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     di.data_ptr(), dk.data_ptr(), dv_out.data_ptr(), b, n, dqk, dv,
-                     _DTYPE_CODES[q.dtype], _stream(q))
-        _raise_on(err, "spatial_attention_dkv")
+        _build.launch("spatial_attention_dkv", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+                      dv_out.data_ptr(), b, n, dqk, dv, _build.DTYPE_CODES[q.dtype])
         trace.count("attn.dkv")
         return dk, dv_out
 
@@ -299,12 +257,9 @@ def spatial_attention_dq(q, k, v, do, lse, di) -> torch.Tensor:
         _check_cuda(q, k, v, do, lse, di, max_dv=backward_width(q.shape[2]))
         b, n, dqk = q.shape
         dq = torch.empty_like(q)
-        fn = _dq_fn()
-        with torch.cuda.device(q.device):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     di.data_ptr(), dq.data_ptr(), b, n, dqk, v.shape[2],
-                     _DTYPE_CODES[q.dtype], _stream(q))
-        _raise_on(err, "spatial_attention_dq")
+        _build.launch("spatial_attention_dq", q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                      b, n, dqk, v.shape[2], _build.DTYPE_CODES[q.dtype])
         trace.count("attn.dq")
         return dq
 

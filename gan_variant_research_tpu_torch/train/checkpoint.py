@@ -1,4 +1,4 @@
-"""Checkpoint I/O in the JAX package's format, without flax or msgpack.
+"""Checkpoint I/O in the JAX package's format, without flax.
 
 Counterpart of ``gan_variant_research_tpu/train/checkpoint.py``: one
 msgpack file a checkpoint, ``{"config_json", "metrics_json", "payload",

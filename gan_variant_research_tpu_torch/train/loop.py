@@ -76,7 +76,8 @@ def train_cut(config: dict, resume: str | None = None, max_steps_override: int |
     metrics_cfg = config.get("metrics") or {}
     if metrics_cfg.get("compute_fid") or metrics_cfg.get("compute_clip_distance"):
         raise NotImplementedError("inline metrics (metrics.compute_fid / compute_clip_distance) "
-                                  "are not ported yet (ROADMAP.md Queue 1, 'Eval')")
+                                  "are not ported yet (ROADMAP.md Queue 1, item 4, "
+                                  "'Variant losses and D options')")
     device = torch.device(device)
     stats = {} if stats is None else stats
     stats.update(steps=0, wall_s=0.0, loader_wait_s=0.0, saves=[])

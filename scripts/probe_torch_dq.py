@@ -166,10 +166,7 @@ def build(variants):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log[-3000:]}")
         print(f"build {v} {ptxas_report(log, KERNELS['main'])}", flush=True)
-        fn = ctypes.CDLL(str(cu.with_suffix(".so"))).spatial_attention_dq
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[v] = fn
+        fns[v] = _build.bind(ctypes.CDLL(str(cu.with_suffix(".so"))), "spatial_attention_dq")
     return fns
 
 
@@ -216,8 +213,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     variants = argv or DEFAULT
     fns = build(variants)
-    real = sa._dq_fn
-    use = lambda v: setattr(sa, "_dq_fn", lambda: fns[v])  # noqa: E731
+    real = _build.kernel
+    use = lambda v: setattr(_build, "kernel",  # noqa: E731
+                            lambda n: fns[v] if n == "spatial_attention_dq" else real(n))
     gen = torch.Generator(device="cuda").manual_seed(0)
     computes = {}
     for v in variants:
@@ -249,7 +247,7 @@ def main(argv) -> int:
               f"event_ms={'/'.join(f'{t:.4f}' for t in ms[v])} "
               + " ".join(f"{k_}_us={t:.2f}" for k_, t in us.items())
               + f" main_tflops={flop / us['main'] / 1e6:.2f} bound_ms={bound:.4f}", flush=True)
-    sa._dq_fn = real
+    _build.kernel = real
     return 0
 
 

@@ -134,10 +134,7 @@ def build(variants):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log[-3000:]}")
         print(f"build {v} {ptxas_report(log, 'dw_partial_wgmma')}", flush=True)
-        fn = ctypes.CDLL(str(cu.with_suffix(".so"))).reflect_conv3x3_dw
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[v] = fn
+        fns[v] = _build.bind(ctypes.CDLL(str(cu.with_suffix(".so"))), "reflect_conv3x3_dw")
     return fns
 
 
@@ -163,8 +160,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     variants = argv or DEFAULT
     fns = build(variants)
-    real = rb._dw_fn
-    use = lambda v: setattr(rb, "_dw_fn", lambda: fns[v])  # noqa: E731
+    real = _build.kernel
+    use = lambda v: setattr(_build, "kernel",  # noqa: E731
+                            lambda n: fns[v] if n == "reflect_conv3x3_dw" else real(n))
     gen = torch.Generator(device="cuda").manual_seed(0)
     computes = {}
     for v in variants:
@@ -198,7 +196,7 @@ def main(argv) -> int:
               f"event_ms={'/'.join(f'{t:.4f}' for t in ms[v])} "
               + " ".join(f"{k}_us={t:.2f}" for k, t in us.items())
               + f" main_tflops={flop / us['main'] / 1e6:.2f}", flush=True)
-    rb._dw_fn = real
+    _build.kernel = real
     return 0
 
 

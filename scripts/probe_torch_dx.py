@@ -128,10 +128,7 @@ def build(variants):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log[-3000:]}")
         print(f"build {v} wgmma_serialized={'C7515' in log}", flush=True)
-        fn = ctypes.CDLL(str(cu.with_suffix(".so"))).reflect_conv3x3_dx
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[v] = fn
+        fns[v] = _build.bind(ctypes.CDLL(str(cu.with_suffix(".so"))), "reflect_conv3x3_dx")
     return fns
 
 
@@ -156,8 +153,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     variants = argv or DEFAULT
     fns = build(variants)
-    real = rb._dx_fn
-    use = lambda v: setattr(rb, "_dx_fn", lambda: fns[v])  # noqa: E731
+    real = _build.kernel
+    use = lambda v: setattr(_build, "kernel",  # noqa: E731
+                            lambda n: fns[v] if n == "reflect_conv3x3_dx" else real(n))
     gen = torch.Generator(device="cuda").manual_seed(0)
     computes = {}
     for v in variants:
@@ -192,7 +190,7 @@ def main(argv) -> int:
         print(f"variant {v} computes_dx={computes[v]} "
               f"event_ms={'/'.join(f'{t:.4f}' for t in ms[v])} host_us={host_us:.1f} "
               + " ".join(f"{k}_us={t:.2f}" for k, t in us.items()), flush=True)
-    rb._dx_fn = real
+    _build.kernel = real
     return 0
 
 

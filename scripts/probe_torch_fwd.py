@@ -113,10 +113,7 @@ def build(variants):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log[-3000:]}")
         print(f"build {v} {ptxas_report(log, 'fwd_main_wgmma')}", flush=True)
-        fn = ctypes.CDLL(str(cu.with_suffix(".so"))).reflect_conv3x3_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[v] = fn
+        fns[v] = _build.bind(ctypes.CDLL(str(cu.with_suffix(".so"))), "reflect_conv3x3")
     return fns
 
 
@@ -150,8 +147,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     variants = argv or DEFAULT
     fns = build(variants)
-    real = rb._forward_fn
-    use = lambda v: setattr(rb, "_forward_fn", lambda: fns[v])  # noqa: E731
+    real = _build.kernel
+    use = lambda v: setattr(_build, "kernel",  # noqa: E731
+                            lambda n: fns[v] if n == "reflect_conv3x3" else real(n))
     gen = torch.Generator(device="cuda").manual_seed(0)
     computes = {}
     for v in variants:
@@ -189,7 +187,7 @@ def main(argv) -> int:
         use(v)
         host_ms = cs.wall_ms(lambda: rb.reflect_conv3x3(x, w, b), 200)
         print(f"host {v} shape=1x2x2x8 us_per_call={host_ms * 1e3:.1f}", flush=True)
-    rb._forward_fn = real
+    _build.kernel = real
     return 0
 
 

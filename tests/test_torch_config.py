@@ -1,7 +1,7 @@
-"""The port's config module against the JAX package's: its YAML reader
+"""The port's config module against the JAX package's: ``load_config``
 against ``yaml.safe_load`` on every file of ``gan_variant_research_tpu/
-configs/`` and on snippets of the subset, the port's copy of the flagship
-config, ``_coerce``, ``override_config``, ``validate_config``,
+configs/`` and against the JAX ``load_config`` on snippets, the port's copy
+of the flagship config, ``_coerce``, ``override_config``, ``validate_config``,
 ``deep_update`` and ``CUT_SCHEMA``."""
 
 import copy
@@ -40,7 +40,7 @@ def test_yaml_reader_matches_safe_load_on_the_jax_configs(path):
     assert _same(cfg.load_config(path), yaml.safe_load(path.read_text()))
 
 
-SNIPPETS = [
+TEXTS = [
     "a: 1\nb: -2\nc: +3\nd: 0x1F\ne: 017\nf: 0b101\ng: 1_000",
     "a: 2.0e-4\nb: 1e-4\nc: 1.0e5\nd: .5\ne: -.inf\nf: .nan\ng: 1.\nh: -0.0",
     "a: yes\nb: Off\nc: TRUE\nd: ~\ne: null\nf:\ng: on",
@@ -50,19 +50,27 @@ SNIPPETS = [
     "seq:\n- 1\n- two\n- [3]\nindented:\n  - a\n  - b",
     "# comment\n\n---\nkey: value  # trailing\n# another\n",
     "url: http://x.y/z\npath: data/photo_jpg\nweird: a:b",
+    "a: &anchor 1", "a: !!str 1", "a: |\n  block", "a: 1:30", "a:\n  - b: 1", "a: [1,\n  2]",
 ]
 
 
-@pytest.mark.parametrize("text", SNIPPETS)
-def test_yaml_reader_matches_safe_load_on_the_subset(text):
-    assert _same(cfg.parse_yaml(text), yaml.safe_load(text))
+def _load(load, path):
+    try:
+        return load(path)
+    except Exception as e:   # noqa: BLE001 - where one side raises, so must the other
+        return e
 
 
-@pytest.mark.parametrize("text", ["a: &anchor 1", "a: !!str 1", "a: |\n  block", "a: 1:30",
-                                  "a:\n  - b: 1", "a: [1,\n  2]"])
-def test_yaml_reader_refuses_what_it_does_not_read(text):
-    with pytest.raises(cfg.ConfigError):
-        cfg.parse_yaml(text)
+@pytest.mark.parametrize("text", TEXTS)
+def test_load_config_matches_jax(text, tmp_path):
+    path = tmp_path / "c.yaml"
+    path.write_text(text)
+    ours, theirs = _load(cfg.load_config, path), _load(jax_config.load_config, path)
+    if isinstance(theirs, Exception) or isinstance(ours, Exception):
+        # both raise, the same error (each package has its own ConfigError)
+        assert type(ours).__name__ == type(theirs).__name__, (ours, theirs)
+    else:
+        assert _same(ours, theirs)
 
 
 def test_port_flagship_config_equals_the_jax_file():

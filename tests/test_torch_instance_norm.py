@@ -16,6 +16,7 @@ from gan_variant_research_tpu.ops import nn_ops as jax_nn
 from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.generator_resnet import ResNetGenerator
 from gan_variant_research_tpu_torch.ops import nn_ops
+from gan_variant_research_tpu_torch.ops.kernels import _build
 from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
 
 SHAPES = [(2, 8, 8, 16), (2, 31, 31, 24), (1, 4, 4, 3)]
@@ -127,7 +128,7 @@ def test_function_on_the_cpu_is_the_chain_bitwise(shape, dtype, relu, plain_laun
     stats = inm.instance_norm_stats_reference(x)
     assert torch.equal(dx, inm.instance_norm_backward_reference(g, x, stats, relu))
     assert trace.COUNTS == before
-    assert inm._norm_fn.cache_info().currsize == 0
+    assert _build.kernel.cache_info().currsize == 0
 
 
 def test_function_refuses_double_backward(plain_launches):
@@ -163,7 +164,7 @@ def test_wrapper_on_the_cpu_runs_the_chain_and_counts_plain(dtype, relu):
     with torch.no_grad():
         inm.instance_norm(x, relu=relu)
     assert _delta(before) == {"norm.fwd.plain": 2, "norm.bwd.plain": 1}
-    assert inm._norm_fn.cache_info().currsize == 0
+    assert _build.kernel.cache_info().currsize == 0
 
 
 def test_float32_route_keeps_double_backward():

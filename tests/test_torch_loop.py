@@ -126,7 +126,7 @@ def test_check_finite_matches_jax(losses):
 
 def test_inline_metrics_are_refused_naming_the_eval_item(tmp_path, data_dirs):
     cfg = _config(data_dirs, tmp_path, metrics={"compute_fid": True})
-    with pytest.raises(NotImplementedError, match="'Eval'"):
+    with pytest.raises(NotImplementedError, match="'Variant losses and D options'"):
         loop.train_cut(cfg, device="cpu")
 
 

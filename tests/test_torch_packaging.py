@@ -1,6 +1,6 @@
 """Packaging contract of the PyTorch port: it imports no JAX (nor PyYAML,
-msgpack or matplotlib, which the machine with the card may lack), every
-subpackage installs, the CUDA sources and the default config ship, and its
+msgpack or matplotlib, which it imports inside the functions that use them),
+every subpackage installs, the CUDA sources and the default config ship, and its
 console scripts resolve."""
 
 import ctypes
@@ -219,10 +219,10 @@ def _c_parameters(source: str) -> tuple[str, list[str]]:
 
 
 def _wrapper_argtypes(monkeypatch) -> dict:
-    """What every loader of the kernel wrappers asks of ``load_library``:
-    library name -> (symbol, ctypes argtypes, restype), without building."""
-    from gan_variant_research_tpu_torch.ops.kernels import _build, instance_norm, resblock
-    from gan_variant_research_tpu_torch.ops.kernels import spatial_attention
+    """What ``_build.kernel`` asks of each library for every kernel of its
+    table: library name -> (symbol, ctypes argtypes, restype), without
+    building."""
+    from gan_variant_research_tpu_torch.ops.kernels import _build
 
     asked = {}
 
@@ -236,18 +236,15 @@ def _wrapper_argtypes(monkeypatch) -> dict:
             return fn
 
     monkeypatch.setattr(_build, "load_library", Library)
-    for module in (resblock, spatial_attention, instance_norm):
-        for attr in dir(module):
-            loader = getattr(module, attr)
-            if attr.endswith("_fn") and hasattr(loader, "__wrapped__"):
-                loader.__wrapped__()   # the uncached loader: the real ctypes setup
+    for name in _build.KERNELS:
+        _build.kernel.__wrapped__(name)   # the uncached loader: the real ctypes setup
     return {name: (symbol, fn.argtypes, fn.restype) for name, (symbol, fn) in asked.items()}
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
-    """The ctypes argtypes a wrapper sets must match its kernel's C
-    parameters in count and order (pointers as c_void_p, ints as c_int, the
+    """The ctypes argtypes ``_build``'s table gives a kernel must match its
+    C parameters in count and order (pointers as c_void_p, ints as c_int, the
     stream last): a mismatch corrupts memory on the card, where no CPU test
     runs the kernel."""
     assert sorted(p.stem for p in (REPO_ROOT / PKG / "csrc").glob("*.cu")) == sorted(KERNELS)
@@ -261,35 +258,35 @@ def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
     assert as_kinds == kinds
     assert kinds[-1] == "ptr"   # the stream
     if kernel == "reflect_conv3x3":
-        # the last int is the route, an index into resblock.FWD_ROUTES
+        # the last int is the route, an index into resblock.TRUNK_ROUTES
         source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
         assert re.search(r"int Cin, int Cout, int route,\s*void\* stream\)", source)
         # and the C entry launches the wgmma route at that route's index, the
         # float32 kernel at the other
         from gan_variant_research_tpu_torch.ops.kernels import resblock
 
-        assert re.search(rf"route == {resblock.FWD_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
+        assert re.search(rf"route == {resblock.TRUNK_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
                          source)
-        assert re.search(rf"route != {resblock.FWD_ROUTES.index('f32_fma')}\) return[^;]*;"
+        assert re.search(rf"route != {resblock.TRUNK_ROUTES.index('f32_fma')}\) return[^;]*;"
                          r"[^}]*reflect_conv3x3_f32<<<", source)
     if kernel == "reflect_conv3x3_dx":
-        # the last int is the route, an index into resblock.DX_ROUTES
+        # the last int is the route, an index into resblock.TRUNK_ROUTES
         source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
         assert re.search(r"int Cout, int route,\s*void\* stream\)", source)
         # and the C entry launches the wgmma route at that route's index
         from gan_variant_research_tpu_torch.ops.kernels import resblock
 
-        assert re.search(rf"route == {resblock.DX_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
+        assert re.search(rf"route == {resblock.TRUNK_ROUTES.index('bf16_wgmma')}\) return launch_wgmma",
                          source)
     if kernel == "reflect_conv3x3_dw":
-        # likewise the dw kernel's last int, an index into resblock.DW_ROUTES
+        # likewise the dw kernel's last int, an index into resblock.TRUNK_ROUTES
         source = (REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text()
         assert re.search(r"int Cout, int S, int route, void\* stream\)", source)
         from gan_variant_research_tpu_torch.ops.kernels import resblock
 
-        assert re.search(rf"route == {resblock.DW_ROUTES.index('f32_fma')}\) {{\s*const dim3 grid"
+        assert re.search(rf"route == {resblock.TRUNK_ROUTES.index('f32_fma')}\) {{\s*const dim3 grid"
                          rf"[^}}]*dw_partial_f32", source)
-        assert re.search(rf"route == {resblock.DW_ROUTES.index('bf16_wgmma')}\) {{\s*const int err = "
+        assert re.search(rf"route == {resblock.TRUNK_ROUTES.index('bf16_wgmma')}\) {{\s*const int err = "
                          "launch_wgmma", source)
 
 

@@ -19,6 +19,7 @@ import torch
 
 from gan_variant_research_tpu.ops.pallas import resblock as jax_rb
 from gan_variant_research_tpu_torch.core import trace
+from gan_variant_research_tpu_torch.ops.kernels import _build
 from gan_variant_research_tpu_torch.ops.kernels import resblock as rb
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -88,7 +89,7 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing(flagship_like):
     got = rb.reflect_conv3x3(x, w1, b1)
     assert torch.equal(got, rb.reflect_conv3x3_reference(x, w1, b1))
     assert trace.COUNTS == before
-    assert rb._forward_fn.cache_info().currsize == 0  # nothing was built
+    assert _build.kernel.cache_info().currsize == 0  # nothing was built
 
 
 def test_bf16_dtype_contract():
@@ -247,10 +248,11 @@ def test_wgmma_fwd_split_matches_reference_and_pallas(shape, c_out):
 @pytest.mark.parametrize("shape,c_out", [((2, 2, 3, 13), 21), ((1, 5, 4, 13), 21)])
 def test_wgmma_fwd_split_on_padded_ragged_channels(shape, c_out):
     """Channel counts that are not multiples of 8 go through the route
-    zero-padded (``pad_fwd_channels``): the first Cout channels are the
+    zero-padded (``pad_channels``): the first Cout channels are the
     conv, the padded ones 0."""
     xb, wb, bt = _bf16_inputs(shape, c_out, seed=22)
-    got = _wgmma_fwd_split(*rb.pad_fwd_channels(xb, wb, bt))
+    got = _wgmma_fwd_split(rb.pad_channels(xb, 3), rb.pad_channels(wb, 2, 3),
+                           rb.pad_channels(bt, 0))
     assert got.shape == shape[:3] + (24,) and not got[..., c_out:].any()
     _check_fwd_split(got[..., :c_out].contiguous(), xb, wb, bt)
 
@@ -261,7 +263,7 @@ def test_pad_fwd_channels(shape, c_out):
     """x, w and b zero-padded to channels of 8; channels of 8 passed through
     as they are."""
     xb, wb, bt = _bf16_inputs(shape, c_out, seed=23)
-    x_p, w_p, b_p = rb.pad_fwd_channels(xb, wb, bt)
+    x_p, w_p, b_p = rb.pad_channels(xb, 3), rb.pad_channels(wb, 2, 3), rb.pad_channels(bt, 0)
     c_in, ci_p, co_p = shape[3], -(-shape[3] // 8) * 8, -(-c_out // 8) * 8
     assert x_p.shape == shape[:3] + (ci_p,) and w_p.shape == (3, 3, ci_p, co_p)
     assert b_p.shape == (co_p,)
@@ -273,20 +275,40 @@ def test_pad_fwd_channels(shape, c_out):
     assert torch.equal(b_p[:c_out], bt) and not b_p[c_out:].any()
 
 
-@pytest.mark.parametrize("shape,c_out,dtype,route", [
-    ((12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # train_gan_cutpp.yaml's trunk
-    ((32, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # a served batch of 32
-    ((4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp_512.yaml's
-    ((2, 2, 3, 13), 21, torch.bfloat16, "bf16_wgmma"),          # both padded to 8
-    ((12, 64, 64, 256), 256, torch.float32, "f32_fma"),
-])
-def test_fwd_route(shape, c_out, dtype, route):
-    assert rb.fwd_route(shape, c_out, dtype) == route
-    assert route in rb.FWD_ROUTES
-    counted = {k.rsplit(".", 1)[1] for k in trace.COUNTS if k.startswith("trunk.fwd.")}
-    assert counted <= set(rb.FWD_ROUTES)
+# (kind, case): the trunk kernel, and the input shape (x for fwd and dw, dy
+# for dx) with the other side's channel count, that each route was written for
+TRUNK_ROUTE_CASES = [
+    ("fwd", (12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),   # train_gan_cutpp.yaml's trunk
+    ("fwd", (32, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),   # a served batch of 32
+    ("fwd", (4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),  # train_gan_cutpp_512.yaml's
+    ("fwd", (2, 2, 3, 13), 21, torch.bfloat16, "bf16_wgmma"),        # both padded to 8
+    ("fwd", (12, 64, 64, 256), 256, torch.float32, "f32_fma"),
+    ("dx", (12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp.yaml's trunk
+    ("dx", (4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),   # train_gan_cutpp_512.yaml's
+    ("dx", (1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),           # any plane, channels of 8
+    ("dx", (3, 17, 33, 70), 130, torch.bfloat16, "bf16_wgmma"),      # Cin padded to 136
+    ("dx", (2, 2, 3, 21), 16, torch.bfloat16, "bf16_wgmma"),         # Cout padded to 24
+    ("dx", (12, 64, 64, 256), 256, torch.float32, "f32_fma"),
+    ("dw", (12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp.yaml's trunk
+    ("dw", (4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),   # train_gan_cutpp_512.yaml's
+    ("dw", (1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),           # any plane, channels of 8
+    ("dw", (3, 17, 33, 130), 70, torch.bfloat16, "bf16_wgmma"),      # both padded to 8
+    ("dw", (12, 64, 64, 256), 256, torch.float32, "f32_fma"),
+]
 
 
-def test_fwd_route_refuses_other_dtypes():
+@pytest.mark.parametrize("kind,shape,channels,dtype,route", TRUNK_ROUTE_CASES)
+def test_trunk_route(kind, shape, channels, dtype, route):
+    """Every trunk kernel takes its route by dtype alone: float32 on FMA,
+    bf16 on wgmma whatever the shape (ragged channels padded to 8), and
+    counts only under ``TRUNK_ROUTES``."""
+    assert rb.trunk_route(dtype) == route
+    assert route in rb.TRUNK_ROUTES
+    counted = {k.rsplit(".", 1)[1] for k in trace.COUNTS if k.startswith(f"trunk.{kind}.")}
+    assert counted <= set(rb.TRUNK_ROUTES)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
+def test_trunk_route_refuses_other_dtypes(kind):
     with pytest.raises(TypeError):
-        rb.fwd_route((1, 4, 4, 8), 8, torch.float16)
+        rb.trunk_route(torch.float16)

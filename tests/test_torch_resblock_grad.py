@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from gan_variant_research_tpu.ops.pallas import resblock as jax_rb
 from gan_variant_research_tpu_torch.core import trace
+from gan_variant_research_tpu_torch.ops.kernels import _build
 from gan_variant_research_tpu_torch.ops.kernels import resblock as rb
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
 
@@ -182,8 +183,7 @@ def test_cpu_gradients_build_and_launch_nothing():
     rb.reflect_conv3x3_dx(dy, w.detach())
     rb.reflect_conv3x3_dw(x.detach(), dy)
     assert trace.COUNTS == before
-    for fn in (rb._forward_fn, rb._dx_fn, rb._dw_fn):
-        assert fn.cache_info().currsize == 0
+    assert _build.kernel.cache_info().currsize == 0
 
 
 @pytest.mark.parametrize("bad", ["dx_rank", "dx_small", "dx_w", "dw_dtype", "dw_shape"])
@@ -217,19 +217,6 @@ def test_dw_split_count(shape, c_out, sms, route, want):
     assert rb.dw_splits(shape, c_out, sms, route) == want
 
 
-@pytest.mark.parametrize("shape,c_in,dtype,route", [
-    ((12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # train_gan_cutpp.yaml's trunk
-    ((4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp_512.yaml's
-    ((1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),            # any plane, channels of 8
-    ((3, 17, 33, 70), 130, torch.bfloat16, "bf16_wgmma"),       # Cin padded to 136
-    ((2, 2, 3, 21), 16, torch.bfloat16, "bf16_wgmma"),          # Cout padded to 24
-    ((12, 64, 64, 256), 256, torch.float32, "f32_fma"),
-])
-def test_dx_route(shape, c_in, dtype, route):
-    assert rb.dx_route(shape, c_in, dtype) == route
-    assert route in rb.DX_ROUTES
-
-
 @pytest.mark.parametrize("shape,c_out", [((3, 5, 6, 130), 70), ((2, 2, 3, 13), 21),
                                          ((1, 3, 2, 16), 24)])
 def test_ragged_bf16_channels_pad_onto_the_wgmma_route(shape, c_out):
@@ -239,7 +226,7 @@ def test_ragged_bf16_channels_pad_onto_the_wgmma_route(shape, c_out):
     passed through as they are."""
     _, w, _, dy = _inputs(shape, c_out, seed=11)
     dy_t, w_t = torch.from_numpy(dy), torch.from_numpy(w)
-    dy_p, w_p = rb.pad_dx_channels(dy_t, w_t)
+    dy_p, w_p = rb.pad_channels(dy_t, 3), rb.pad_channels(w_t, 2, 3)
     c_in = shape[3]
     assert dy_p.shape == shape[:3] + (-(-c_out // 8) * 8,)
     assert w_p.shape == (3, 3, -(-c_in // 8) * 8, -(-c_out // 8) * 8)
@@ -250,11 +237,6 @@ def test_ragged_bf16_channels_pad_onto_the_wgmma_route(shape, c_out):
     assert not w_p[:, :, c_in:].any() and not w_p[..., c_out:].any()
     got, _ = _wgmma_route_split(dy_p, w_p)
     assert _rel(got[..., :c_in].numpy(), rb.reflect_conv3x3_dx_reference(dy_t, w_t).numpy()) <= 1e-5
-
-
-def test_dx_route_refuses_other_dtypes():
-    with pytest.raises(TypeError):
-        rb.dx_route((1, 4, 4, 8), 8, torch.float16)
 
 
 def _fold_slot(h, w, i, j):
@@ -349,25 +331,6 @@ def test_wgmma_route_split_matches_reference_and_xla(shape, c_out):
     assert _rel(got.numpy(), jax_rb._xla_data_grad(jnp.asarray(dy), jnp.asarray(w))) <= 1e-4
 
 
-@pytest.mark.parametrize("shape,c_out,dtype,route", [
-    ((12, 64, 64, 256), 256, torch.bfloat16, "bf16_wgmma"),     # train_gan_cutpp.yaml's trunk
-    ((4, 128, 128, 256), 256, torch.bfloat16, "bf16_wgmma"),    # train_gan_cutpp_512.yaml's
-    ((1, 3, 2, 8), 8, torch.bfloat16, "bf16_wgmma"),            # any plane, channels of 8
-    ((3, 17, 33, 130), 70, torch.bfloat16, "bf16_wgmma"),       # both padded to 8
-    ((12, 64, 64, 256), 256, torch.float32, "f32_fma"),
-])
-def test_dw_route(shape, c_out, dtype, route):
-    assert rb.dw_route(shape, c_out, dtype) == route
-    assert route in rb.DW_ROUTES
-    counted = {k.rsplit(".", 1)[1] for k in trace.COUNTS if k.startswith("trunk.dw.")}
-    assert counted <= set(rb.DW_ROUTES)
-
-
-def test_dw_route_refuses_other_dtypes():
-    with pytest.raises(TypeError):
-        rb.dw_route((1, 4, 4, 8), 8, torch.float16)
-
-
 @pytest.mark.parametrize("shape,c_out", [((3, 5, 6, 130), 70), ((2, 2, 3, 13), 21),
                                          ((1, 3, 2, 16), 24), ((1, 2, 5, 8), 13)])
 def test_pad_dw_channels(shape, c_out):
@@ -377,7 +340,7 @@ def test_pad_dw_channels(shape, c_out):
     8 are passed through as they are."""
     x, _, _, dy = _inputs(shape, c_out, seed=12)
     x_t, dy_t = torch.from_numpy(x), torch.from_numpy(dy)
-    x_p, dy_p = rb.pad_dw_channels(x_t, dy_t)
+    x_p, dy_p = rb.pad_channels(x_t, 3), rb.pad_channels(dy_t, 3)
     c_in = shape[3]
     assert x_p.shape == shape[:3] + (-(-c_in // 8) * 8,)
     assert dy_p.shape == shape[:3] + (-(-c_out // 8) * 8,)
