@@ -24,8 +24,12 @@ Phases, one line each:
               line; the forward within 2e-5 (+ 2e-5 relative, + one bf16
               ulp in bf16) of the plain version, dw within 1e-4 of the
               largest value; the forward, dw and bf16 dx run twice must be
-              bitwise equal. The attention forward, dK/dV and dQ at (B, n,
-              d_qk, d_v) = (12, 4096, 32, 256) in float32 and bf16, (32, 4096,
+              bitwise equal. dw's bias gradient (resblock._launch_dw with
+              with_db) at every dw case, both routes: dw bitwise the one
+              without it, db within 1e-6 of sum |dy| of the float64 sum of
+              dy per channel, twice bitwise equal, counted trunk.dw.db. The
+              attention forward, dK/dV and dQ at (B, n, d_qk, d_v) =
+              (12, 4096, 32, 256) in float32 and bf16, (32, 4096,
               32, 256) and (2, 16384, 32, 256) in bf16, ragged shapes, the
               bf16 forward's tile edges (n of 4097 and 129, d_qk 8 and 64, d_v
               8 and 136) and dK/dV's (n of 127, 128, 129 and 4097 at B = 1,
@@ -88,7 +92,8 @@ Phases, one line each:
               16, identity warmup) runs 4 steps through CUTTrainer.train_step
               with seeded uint8 batches; step 0 is an R1 step. Every step
               launches 54 trunk forwards, 54 dx and 54 dw (3 G passes x 18
-              trunk convs, each with its backward) and 68 instance norms
+              trunk convs, each with its backward; every dw also sums the
+              conv's bias gradient, trunk.dw.db) and 68 instance norms
               with their backward (23 + 22 + 23), every forward, dx and dw
               on its bf16 wgmma route, every norm on the kernel route: the
               wrappers count them on the host
@@ -135,7 +140,9 @@ Phases, one line each:
               of each generator; ms per train step (warmup and R1) of each on
               the kernel path and the plain path; a torch.profiler op table of
               a served batch and of a warmup step of each, with the device's
-              busy time and idle share.
+              busy time and idle share. dw_db: dw with and without the bias
+              gradient at (12|1|48, 64, 64, 256) bf16 (CUDA events: without,
+              with, with, without; and each queued ahead of the device).
 
 8. attention_widths - variant generators at ngf 8, 40, 96, 160, 256 and
               320 (d_qk 4, 20, 48, 80, 128, 160; d_v 32, 160, 384, 640,
@@ -191,7 +198,8 @@ Phases, one line each:
               kernels and through the plain versions from one state and one
               set of draws: losses to 1e-4, Adam's mu per leaf to 1e-3 of the
               leaf's max; 1 + 10 bf16 steps at baseline.yaml (batch 1) and
-              baseline_tpu.yaml (batch 16), each launching 54/54/54 trunk
+              baseline_tpu.yaml (batch 16), each launching (no dw summing a
+              bias gradient: the trunk is bias-free) 54/54/54 trunk
               kernels on their bf16 wgmma routes, and of the U-Net option
               (batch 1, no trunk launch): losses finite, all four nets moved,
               ms a step, peak memory, one profiled step's device busy time and
@@ -418,6 +426,13 @@ def reset_counts(resblock) -> None:
     drop_counts("trunk.")
 
 
+def db_count() -> int:
+    """dw launches that also summed the bias gradient (``trunk.dw.db``)."""
+    from gan_variant_research_tpu_torch.core import trace
+
+    return trace.COUNTS.get("trunk.dw.db", 0)
+
+
 def check_routes(resblock, before: dict, want: dict, what: str) -> None:
     """Every trunk forward, dx and dw launched since ``before``
     (``route_counts``) took its bf16 wgmma route: ``want[op]`` launches of
@@ -607,6 +622,27 @@ def phase_kernels(gen) -> dict:
               rel_to_max=f"{rel:.3e}", bitwise_repeatable=bool(torch.equal(dw, dw2)))
         check(rel <= 1e-4, f"reflect_conv3x3_dw {shape} {dtype}: {rel} of max over 1e-4")
         check(torch.equal(dw, dw2), f"reflect_conv3x3_dw {shape} {dtype}: two runs differ")
+
+        # the same kernel with the bias gradient: dw unchanged, db the sum
+        # of dy's exact values (float32 sums in another order than float64's)
+        before_db = db_count()
+        dw3, db = resblock._launch_dw(x, dy, with_db=True)
+        dw4, db2 = resblock._launch_dw(x, dy, with_db=True)
+        torch.cuda.synchronize()
+        check(db_count() - before_db == 2, f"dw+db {shape} {dtype}: not counted trunk.dw.db")
+        r_db = dy.double().sum(dim=(0, 1, 2))
+        scale = dy.double().abs().sum(dim=(0, 1, 2))
+        d_db = (db.double() - r_db).abs() / scale
+        errs[("db", shape, dtype)] = float(d_db.max())
+        phase("kernel", name="reflect_conv3x3_dw+db", route=route, **label,
+              db_max_err_over_abs_sum=f"{d_db.max().item():.3e}",
+              dw_bitwise_without_db=bool(torch.equal(dw3, dw)),
+              bitwise_repeatable=bool(torch.equal(db, db2) and torch.equal(dw3, dw4)))
+        check(db.dtype == torch.float32 and db.shape == (c_out,), f"db {shape} {dtype}: bad output")
+        check(torch.equal(dw3, dw), f"dw+db {shape} {dtype}: dw differs from dw without db")
+        check(float(d_db.max()) <= 1e-6, f"db {shape} {dtype}: {float(d_db.max())} of sum |dy|")
+        check(torch.equal(db, db2) and torch.equal(dw3, dw4),
+              f"dw+db {shape} {dtype}: two runs differ")
     return errs
 
 
@@ -965,7 +1001,7 @@ def phase_train(rng, g_tree, d_tree):
     r1_values = []
     for photos, monets in batches:
         before, routes, ran = counts(resblock), route_counts(resblock), graph_counts()
-        norms = norm_counts()
+        norms, dbs = norm_counts(), db_count()
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip(counts(resblock), before))
@@ -973,6 +1009,9 @@ def phase_train(rng, g_tree, d_tree):
         host = host_runs(ran, "flagship step")
         check_routes(resblock, routes, dict.fromkeys(routes, host * 3 * TRUNK_CONVS),
                      "flagship step")
+        dbs = db_count() - dbs
+        check(dbs == host * 3 * TRUNK_CONVS,
+              f"flagship step: {dbs} dw launches summed db, want {host} x {3 * TRUNK_CONVS}")
         host_norms = check_norm_counts(norms, host * NORM_FLAGSHIP_STEP,
                                        host * NORM_FLAGSHIP_STEP, "flagship step")
         vals = {k: float(v) for k, v in losses.items()}
@@ -980,7 +1019,7 @@ def phase_train(rng, g_tree, d_tree):
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
               graph="replay" if ran["replay"] else "eager+capture",
-              host_launches_fwd_dx_dw="/".join(map(str, step_counts)),
+              host_launches_fwd_dx_dw="/".join(map(str, step_counts)), host_dw_db=dbs,
               host_norm_fwd_bwd=f"{host_norms['fwd.kernel']}/{host_norms['bwd.kernel']}",
               fwd_dx_dw_route="bf16_wgmma",
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
@@ -1622,7 +1661,7 @@ def phase_train_variant(rng, g_tree, d_tree):
     reset_attn_counts(sa)
     for photos, monets in batches:
         before, routes = (*counts(resblock), *attn_counts(sa)), route_counts(resblock)
-        ran = graph_counts()
+        ran, dbs = graph_counts(), db_count()
         state, losses = trainer.train_step(state, photos, monets)
         torch.cuda.synchronize()
         step_counts = tuple(a - c for a, c in zip((*counts(resblock), *attn_counts(sa)), before))
@@ -1630,11 +1669,14 @@ def phase_train_variant(rng, g_tree, d_tree):
         host = host_runs(ran, "variant step")
         check_routes(resblock, routes, dict.fromkeys(routes, host * 3 * TRUNK_CONVS),
                      "variant step")
+        dbs = db_count() - dbs
+        check(dbs == host * 3 * TRUNK_CONVS,
+              f"variant step: {dbs} dw launches summed db, want {host} x {3 * TRUNK_CONVS}")
         vals = {k: float(v) for k, v in losses.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
         phase("train_variant", step=state.step - 1, r1_step=trainer.step_flags(state.step - 1)[0],
               graph="replay" if ran["replay"] else "eager+capture",
-              host_launches_trunk="/".join(map(str, step_counts[:3])),
+              host_launches_trunk="/".join(map(str, step_counts[:3])), host_dw_db=dbs,
               host_launches_attn="/".join(map(str, step_counts[3:])),
               **{k: f"{v:.5f}" for k, v in vals.items() if k in
                  ("d_loss", "g_loss", "g_adv", "nce", "identity", "r1")})
@@ -2877,10 +2919,12 @@ def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
         if i == 1:   # the first step warms up
             torch.cuda.synchronize()
             t = time.perf_counter()
-        before, routes = counts(resblock), route_counts(resblock)
+        before, routes, dbs = counts(resblock), route_counts(resblock), db_count()
         state, losses = trainer.train_step(state, a, b)
         step_counts = tuple(x - y for x, y in zip(counts(resblock), before))
         check(step_counts == want, f"{name} step {i} launched {step_counts}, want {want}")
+        # the bias-free trunk: no dw launch sums a bias gradient
+        check(db_count() == dbs, f"{name} step {i}: {db_count() - dbs} dw launches summed db")
         if expect_trunk:
             check_routes(resblock, routes, dict.fromkeys(routes, want[0]), f"{name} step")
         losses_seen.append(losses)
@@ -2937,6 +2981,32 @@ def queued_us(fn, iters: int = 50) -> float:
             return start.elapsed_time(end) * 1e3 / iters
         cycles *= 4
     raise RuntimeError("chip_smoke: the host did not queue the calls ahead of the device")
+
+
+def phase_dw_db_timing(gen) -> None:
+    """dw with and without the bias gradient at the CUT trunk's (12, 64, 64,
+    256) and CycleGAN's (1, ...) and (48, ...), bf16: CUDA events around
+    back-to-back calls in the order without, with, with, without, and each
+    queued ahead of the device (``queued_us``, the device's time where the
+    host's launch cost sets the events' pace at batch 1)."""
+    from gan_variant_research_tpu_torch.ops.kernels import resblock
+
+    for n in (TRAIN_SHAPE[0], CYCLEGAN_BATCHES[0], CYCLEGAN_BATCHES[-1]):
+        shape = (n, 64, 64, 256)
+        x, _, _ = conv_inputs(shape, 256, torch.bfloat16, gen)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        without = lambda: resblock._launch_dw(x, dy)  # noqa: E731
+        with_db = lambda: resblock._launch_dw(x, dy, with_db=True)  # noqa: E731
+        iters = 20 if n == 1 else 10
+        a1, b1, b2, a2 = (event_ms(f, iters) for f in (without, with_db, with_db, without))
+        dev_a, dev_b = queued_us(without), queued_us(with_db)
+        phase("timing", op="reflect_conv3x3_dw_db", shape="x".join(map(str, shape)),
+              dtype="bf16", without_db_ms=f"{a1:.4f}/{a2:.4f}", with_db_ms=f"{b1:.4f}/{b2:.4f}",
+              with_over_without=f"{(b1 + b2) / (a1 + a2):.4f}",
+              without_db_device_us=f"{dev_a:.2f}", with_db_device_us=f"{dev_b:.2f}",
+              device_with_over_without=f"{dev_b / dev_a:.4f}")
+        del x, dy
+    torch.cuda.empty_cache()
 
 
 def cyclegan_kernel_timing(gen) -> dict:
@@ -3183,6 +3253,7 @@ def main() -> int:
 
     # 7. timing
     conv_ms, grad_ms, norm_launches = phase_timing(gen, rng, net, trainer, state, batches)
+    phase_dw_db_timing(torch.Generator(device="cuda").manual_seed(20))
     attn = phase_timing_variant(gen, rng, vnet, vtrainer, vstate, vbatches)
     del net, trainer, state, batches, vnet, vtrainer, vstate, vbatches
     torch.cuda.empty_cache()

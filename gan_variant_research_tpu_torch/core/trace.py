@@ -24,6 +24,7 @@ span closed until it ends carries, on any thread.
 ``count(name, n)`` adds to ``COUNTS``; counters are always on: the kernels'
 launches by route, counted on the host as each wrapper launches
 (``trunk.fwd.<route>``, ``trunk.dx.<route>``, ``trunk.dw.<route>``,
+``trunk.dw.db`` (a ``dw`` launch that also sums the bias gradient),
 ``attn.fwd.<route>``, ``attn.dkv``, ``attn.dq``; a CUDA-graph replay
 counts none), and how each CUT step ran (``cut.graph.eager``,
 ``cut.graph.capture``, ``cut.graph.replay``: ``train/cut_trainer.py``).

@@ -11,6 +11,9 @@
 //   xr[n][h+ky-1][w+kx-1][ci] * dy[n][h][w][co], where xr is x reflected at
 //   the border. Products are exact in float32 (bf16 x bf16) or float32, sums
 //   are float32. The result is bitwise the same from run to run.
+//   Optionally also db (Cout,) float32 = sum over n, h, w of dy[n][h][w][co],
+//   the conv's bias gradient: float32 sums of the exact values of dy, bitwise
+//   the same from run to run.
 //
 // What bounds it. Nine (N*H*W, Cin)^T (N*H*W, Cout) products: at B = 12 the
 // trunk reduces over 49,152 pixels into 589,824 float32 outputs, ~58 GFLOP
@@ -24,12 +27,22 @@
 // caller so that the blocks fill the SMs; each block writes its float32
 // partial sums to a scratch buffer (S, 3, 3, Cin, Cout), and dw_reduce adds
 // the S partials in the order s = 0..S-1. No atomics, so the sum's order is
-// fixed and the result deterministic. The caller picks one of two routes
-// (the `route` argument):
+// fixed and the result deterministic. The bias gradient rides on the same
+// blocks, each pixel's value read from the dy tile they stage anyway: the
+// blocks of one output-channel tile and share stage the same dy segments
+// (only x's row changes with ky and the input-channel tile), so G of them
+// (G groups, see each route) split the share's segments between them and sum
+// in a fixed order (per segment its pixels one by one into a segment sum,
+// added to the group's), into S x G partial rows (S, G, Cout) after the dw
+// partials, which dw_reduce adds in the order s = 0..S-1, g = 0..G-1. The
+// caller picks one of two routes (the `route` argument):
 //
 //   0  float32 on FMA (never TF32): block (64 ci, 64 co, kernel row ky,
 //      share s), each thread 4 ci x 4 co x 3 taps; per segment it stages dy
-//      [64 px x 64 co] and the reflected x row h+ky-1 [66 px x 64 ci].
+//      [64 px x 64 co] and the reflected x row h+ky-1 [66 px x 64 ci]. The
+//      threads of ci row 0 hold each staged pixel's 64 dy values in registers
+//      for the products; in the blocks of ci tile 0 and ky = 1 (G = 1) they
+//      also sum db.
 //   1  bf16 on wgmma, for Cin and Cout multiples of 8 and 16-byte aligned
 //      pointers (the caller zero-pads other channel counts). Block (128 ci,
 //      128 co, ky, s): M = ci, N = co, K = pixels, one K-stage a segment. One
@@ -48,6 +61,17 @@
 //      reads column 1, column W reads column W - 2) and the three taps share
 //      one staged row. Each wgmma is its own group and takes its A fragment
 //      from a ring of four, reloaded once the product that read it retired.
+//      db (the kernel's DB instance; the other compiles no trace of it, so
+//      the call without db runs the code it ran before db existed: with one
+//      instance and a runtime branch ptxas scheduled the consumers otherwise
+//      and the call without db took 2.5% longer): in every block, the producer warpgroup's last two warps (idle
+//      otherwise), four channels and half the pixels a thread, sum every
+//      G-th staged dy segment (G = 3 x the ci tiles: the block of ci tile t
+//      and row ky takes the share's segments j with j % G = 3 t + ky) in its
+//      swizzle, and join every stage's empty barrier, so no stage is refilled
+//      before they have read it. Summing each segment on one block in G keeps
+//      the summing warps, whose loads wait one after the other in the
+//      producer's 24 registers, well ahead of the consumers.
 //      At (12, 64, 64, 256): 12 output tiles x S = 11 = 132 blocks, one wave.
 
 #include <cuda.h>   // CUtensorMap; the encoder comes from cudaGetDriverEntryPoint
@@ -81,8 +105,8 @@ __device__ __forceinline__ void split_range(long long total, int s, int S,
 
 __global__ void __launch_bounds__(THREADS)
 dw_partial_f32(const float* __restrict__ x, const float* __restrict__ dy,
-               float* __restrict__ part, int N, int H, int W, int Cin, int Cout,
-               int S) {
+               float* __restrict__ part, float* __restrict__ part_db, int N, int H, int W,
+               int Cin, int Cout, int S) {
   __shared__ __align__(16) float xs[XQ * CI_T];     // [q][ci]
   __shared__ __align__(16) float dys[SEG * CO_T];   // [p][co]
 
@@ -94,6 +118,11 @@ dw_partial_f32(const float* __restrict__ x, const float* __restrict__ dy,
   const int tc = tid % 16;   // co group of 4
   const int tr = tid / 16;   // ci group of 4
   const int segs_w = (W + SEG - 1) / SEG;
+  // db: ci row 0 of the blocks of ci tile 0 and kernel row 1, output
+  // channels co0 + 4 tc .. + 3 (the 16 threads together hold all 64), each
+  // segment's 64 pixels one by one into a segment sum, added to the share's
+  const bool sums_db = part_db != nullptr && ci0 == 0 && ky == 1 && tr == 0;
+  float db_share[4] = {0.f, 0.f, 0.f, 0.f};
 
   float acc[3][4][4];
 #pragma unroll
@@ -122,9 +151,16 @@ dw_partial_f32(const float* __restrict__ x, const float* __restrict__ dy,
       dys[i] = (co0 + c < Cout && w0 + p < W) ? dyrow[(size_t)(w0 + p) * Cout + co0 + c] : 0.f;
     }
     __syncthreads();
+    float db_seg[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int p = 0; p < SEG; ++p) {
       const float4 d = *reinterpret_cast<const float4*>(dys + p * CO_T + tc * 4);
+      if (sums_db) {
+        db_seg[0] += d.x;
+        db_seg[1] += d.y;
+        db_seg[2] += d.z;
+        db_seg[3] += d.w;
+      }
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
         const float4 xv = *reinterpret_cast<const float4*>(xs + (p + kx) * CI_T + tr * 4);
@@ -138,9 +174,16 @@ dw_partial_f32(const float* __restrict__ x, const float* __restrict__ dy,
         }
       }
     }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) db_share[b] += db_seg[b];
     __syncthreads();
   }
 
+  if (sums_db) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (co0 + tc * 4 + b < Cout) part_db[(size_t)s * Cout + co0 + tc * 4 + b] = db_share[b];
+  }
   float* ps = part + (size_t)s * 9 * Cin * Cout;
 #pragma unroll
   for (int kx = 0; kx < 3; ++kx)
@@ -168,6 +211,7 @@ constexpr int W_CO = 128;                  // output channels per block
 constexpr int W_STAGES = 6;
 constexpr int W_THREADS = 384;             // producer + two consumers
 constexpr int W_CONSUMERS = 256;
+constexpr int W_DB_THREADS = 64;           // the producer warpgroup's last two warps
 constexpr int W_DYBOX = SEG * 128;         // 64 pixels x 64 channels
 constexpr int W_XBOX = 9 * 1024;           // 66 pixels x 64 channels (8448 bytes), to 1024
 constexpr int W_XOFF = 2 * W_DYBOX;
@@ -367,12 +411,65 @@ __device__ __forceinline__ void dw_consume(uint32_t base, uint32_t full, uint32_
   }
 }
 
+// The bias gradient's partial of group g of G, on the producer warpgroup's
+// last W_DB_THREADS (two warps, one a 64-channel box of dy): lane l of warp
+// `box` sums output channels co0 + 64 box + 4 (l % 16) .. + 3 over pixels
+// 32 (l / 16) .. + 31 of each segment j < segs of the share with j % G = g
+// (one 8-byte load a pixel, in the 128-byte swizzle; TMA's zero fill past W
+// adds nothing), pixel by pixel into a segment sum, each segment sum added
+// to the half's; at the end the two halves' sums (first half + second) give
+// the partial. Every segment j is waited for on its ring stage's full
+// barrier and released on its empty barrier, which counts these threads
+// beside the consumers. The loads are volatile, so they stay between the two
+// barriers.
+__device__ __forceinline__ void dw_sum_db(uint32_t base, uint32_t full, uint32_t empty,
+                                          int segs, int g, int G, int co0,
+                                          float* __restrict__ part_db_sg, int Cout) {
+  const int u = threadIdx.x - (128 - W_DB_THREADS);
+  const int box = u >> 5, half = (u >> 4) & 1, quad = u & 15, chunk = quad >> 1;
+  const uint32_t col = base + box * W_DYBOX + half * 32 * 128 + (quad & 1) * 8;
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j = 0, next = g; j < segs; ++j) {
+    const int st = j % W_STAGES;
+    mbar_wait(full + 8 * st, (j / W_STAGES) & 1);
+    if (j == next) {
+      next += G;
+      const uint32_t rows = col + st * W_STAGE;
+      float seg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int p = 0; p < SEG / 2; ++p) {   // row 32 half + p; its swizzle row is p % 8
+        uint32_t lo, hi;
+        asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+                     : "=r"(lo), "=r"(hi)
+                     : "r"(rows + p * 128 + ((chunk ^ (p & 7)) << 4)));
+        seg[0] += __uint_as_float(lo << 16);
+        seg[1] += __uint_as_float(lo & 0xffff0000u);
+        seg[2] += __uint_as_float(hi << 16);
+        seg[3] += __uint_as_float(hi & 0xffff0000u);
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) part[b] += seg[b];
+    }
+    mbar_arrive(empty + 8 * st);
+  }
+  const int co = co0 + 64 * box + 4 * quad;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const float other = __shfl_xor_sync(0xffffffffu, part[b], 16);
+    // Cout is a multiple of 8, so co + 3 < Cout where co < Cout
+    if (half == 0 && co < Cout) part_db_sg[co + b] = part[b] + other;
+  }
+}
+
 // x comes in through a 4-D tensor map over (Cin, W, H, N) in boxes of (64, 66,
 // 1, 1), dy through one over (Cout, W, H, N) in boxes of (64, 64, 1, 1).
-// Block (ci tile, co tile, 3 s + ky).
+// Block (ci tile, co tile, 3 s + ky). DB: also the bias gradient's partials
+// into part_db (S, G, Cout), G = 3 x the ci tiles.
+template <bool DB>
 __global__ void __launch_bounds__(W_THREADS, 1)
 dw_partial_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
-                 float* __restrict__ part, int N, int H, int W, int Cin, int Cout, int S) {
+                 float* __restrict__ part, float* __restrict__ part_db, int N, int H, int W,
+                 int Cin, int Cout, int S) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t full = base + W_BAR, empty = full + 8 * W_STAGES;
@@ -385,7 +482,7 @@ dw_partial_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   if (threadIdx.x == 0) {
     for (int i = 0; i < W_STAGES; ++i) {
       mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, W_CONSUMERS);
+      mbar_init(empty + 8 * i, W_CONSUMERS + (DB ? W_DB_THREADS : 0));
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -416,6 +513,10 @@ dw_partial_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__
         tma_load_4d(stage + W_XOFF, &tx, ci0, w0 - 1, hr, n, bar);
         if (x2) tma_load_4d(stage + W_XOFF + W_XBOX, &tx, ci0 + 64, w0 - 1, hr, n, bar);
       }
+    } else if (DB && threadIdx.x >= 128 - W_DB_THREADS) {
+      const int G = 3 * gridDim.x, g = 3 * blockIdx.x + ky;
+      dw_sum_db(base, full, empty, (int)(hi - lo), g, G, co0,
+                part_db + ((size_t)s * G + g) * Cout, Cout);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
@@ -426,9 +527,23 @@ dw_partial_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__
 
 // ---------------------------------------------------------------------------
 
+// db[i] for i < Cout where db is given (first, so that its longer sums start
+// with the first wave), then dw[i - Cout] (or dw[i]) for the next count: dw
+// the S partials added in the order s = 0..S-1, db the S x G partials (after
+// the dw ones in part) in the order s, then g.
 __global__ void dw_reduce(const float* __restrict__ part, float* __restrict__ dw,
-                          long long count, int S) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                          float* __restrict__ db, long long count, int Cout, int S, int G) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (db != nullptr) {
+    if (i < Cout) {
+      const float* pdb = part + (size_t)S * count;
+      float v = 0.f;
+      for (int sg = 0; sg < S * G; ++sg) v += pdb[(size_t)sg * Cout + i];
+      db[i] = v;
+      return;
+    }
+    i -= Cout;
+  }
   if (i >= count) return;
   float v = 0.f;
   for (int s = 0; s < S; ++s) v += part[(size_t)s * count + i];
@@ -477,8 +592,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int N, int H, int W, int C,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int launch_wgmma(const void* x, const void* dy, float* part, int N, int H, int W, int Cin,
-                 int Cout, int S, cudaStream_t st) {
+int launch_wgmma(const void* x, const void* dy, float* part, float* part_db, int N, int H,
+                 int W, int Cin, int Cout, int S, cudaStream_t st) {
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16) == 0;
   if (Cin % 8 || Cout % 8 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
@@ -493,13 +608,20 @@ int launch_wgmma(const void* x, const void* dy, float* part, int N, int H, int W
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidValue);
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(dw_partial_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               W_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    for (const void* fn : {reinterpret_cast<const void*>(dw_partial_wgmma<false>),
+                           reinterpret_cast<const void*>(dw_partial_wgmma<true>)}) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     ready[dev] = true;
   }
   const dim3 grid((Cin + W_CI - 1) / W_CI, (Cout + W_CO - 1) / W_CO, 3 * S);
-  dw_partial_wgmma<<<grid, W_THREADS, W_SMEM, st>>>(tx, tdy, part, N, H, W, Cin, Cout, S);
+  if (part_db != nullptr)
+    dw_partial_wgmma<true><<<grid, W_THREADS, W_SMEM, st>>>(tx, tdy, part, part_db, N, H, W, Cin,
+                                                            Cout, S);
+  else
+    dw_partial_wgmma<false><<<grid, W_THREADS, W_SMEM, st>>>(tx, tdy, part, nullptr, N, H, W,
+                                                             Cin, Cout, S);
   return static_cast<int>(cudaSuccess);
 }
 
@@ -507,28 +629,36 @@ int launch_wgmma(const void* x, const void* dy, float* part, int N, int H, int W
 
 // x (N,H,W,Cin), dy (N,H,W,Cout) in one dtype; route: 0 float32 (FMA), 1
 // bf16 (wgmma + TMA; Cin, Cout multiples of 8, 16-byte aligned pointers).
-// part: float32 scratch of S * 9 * Cin * Cout; dw (3,3,Cin,Cout) float32.
+// part: float32 scratch of S * 9 * Cin * Cout, and S * G * Cout more after
+// them where db is given (G = 1 on route 0, 3 * ceil(Cin / 128) on route 1);
+// dw (3,3,Cin,Cout) float32; db (Cout,) float32, or null for no bias
+// gradient.
 // Returns a cudaError_t after the two launches (0 = cudaSuccess,
 // cudaErrorInvalidValue for a shape or route the call does not take); both
 // are asynchronous on `stream`.
 extern "C" int reflect_conv3x3_dw(const void* x, const void* dy, void* part,
-                                  void* dw, int N, int H, int W, int Cin,
+                                  void* dw, void* db, int N, int H, int W, int Cin,
                                   int Cout, int S, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S < 1 || 3LL * S > 65535 || N < 1 || H < 2 || W < 2 || Cin < 1 || Cout < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
+  const long long count = 9LL * Cin * Cout;
+  float* p_db = db != nullptr ? p + S * count : nullptr;
   if (route == 0) {
     const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, 3 * S);
     dw_partial_f32<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), p, N, H, W, Cin, Cout, S);
+        static_cast<const float*>(x), static_cast<const float*>(dy), p, p_db, N, H, W, Cin,
+        Cout, S);
   } else if (route == 1) {
-    const int err = launch_wgmma(x, dy, p, N, H, W, Cin, Cout, S, st);
+    const int err = launch_wgmma(x, dy, p, p_db, N, H, W, Cin, Cout, S, st);
     if (err != 0) return err;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long count = 9LL * Cin * Cout;
-  dw_reduce<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(p, static_cast<float*>(dw), count, S);
+  const long long reduced = count + (db != nullptr ? Cout : 0);
+  const int groups = route == 1 ? 3 * ((Cin + W_CI - 1) / W_CI) : 1;
+  dw_reduce<<<(unsigned)((reduced + 255) / 256), 256, 0, st>>>(
+      p, static_cast<float*>(dw), static_cast<float*>(db), count, Cout, S, groups);
   return static_cast<int>(cudaGetLastError());
 }

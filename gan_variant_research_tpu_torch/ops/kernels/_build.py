@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = {
     "reflect_conv3x3": ("reflect_conv3x3_forward", 4, 6),
     "reflect_conv3x3_dx": ("reflect_conv3x3_dx", 4, 6),
-    "reflect_conv3x3_dw": ("reflect_conv3x3_dw", 4, 7),
+    "reflect_conv3x3_dw": ("reflect_conv3x3_dw", 5, 7),
     "spatial_attention": ("spatial_attention_forward", 5, 5),
     "spatial_attention_dkv": ("spatial_attention_dkv", 8, 5),
     "spatial_attention_dq": ("spatial_attention_dq", 7, 5),

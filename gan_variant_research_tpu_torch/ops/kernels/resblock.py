@@ -13,6 +13,8 @@ Counterpart of ``gan_variant_research_tpu/ops/pallas/resblock.py``.
   reflect_conv3x3_dx.cu`` on CUDA, ``reflect_conv3x3_dx_reference`` on CPU.
 - ``reflect_conv3x3_dw(x, dy)``: the weight gradient, ``csrc/
   reflect_conv3x3_dw.cu`` on CUDA, ``reflect_conv3x3_dw_reference`` on CPU.
+  The same kernel also sums the bias gradient for ``_ReflectConv3x3``'s
+  backward on the card (``_launch_dw(..., with_db=True)``).
 - ``fused_resblock``: conv -> instance norm + ReLU -> conv -> instance norm
   -> residual add, NHWC.
 
@@ -20,7 +22,8 @@ A CUDA tensor launches the kernel (built at first use) or raises; the plain
 versions serve CPU tensors. Each kernel takes one of the routes
 ``TRUNK_ROUTES``, which ``trunk_route`` picks by dtype alone. Each launch
 is counted in ``core/trace.py``'s ``COUNTS`` under ``trunk.fwd.<route>``,
-``trunk.dx.<route>`` or ``trunk.dw.<route>``, and its wrapper's host side
+``trunk.dx.<route>`` or ``trunk.dw.<route>`` (and a ``dw`` launch that also
+sums the bias gradient under ``trunk.dw.db``), and its wrapper's host side
 is the span ``trunk.fwd``, ``trunk.dx`` or ``trunk.dw``.
 """
 
@@ -68,6 +71,12 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if not (w.is_floating_point() and b.is_floating_point()):
         raise TypeError("w and b must be floating point")
     _check_device(x, w, b)
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the plain versions (a CPU tensor) rather than
+    the kernels."""
+    return t.device.type == "cpu"
 
 
 def _check_cuda(t: torch.Tensor) -> None:
@@ -177,8 +186,8 @@ def _launch(kind: str, acts, operands, want, setup) -> torch.Tensor:
     zero-padded to 8 and its 4-D tensors given the 16-byte aligned bases the
     tensor maps need, then ``setup(route, *operands) -> (out, tensors,
     ints)`` for what is the kernel's own, the launch on ``tensors``' pointers
-    and ``ints``, its count, and ``out`` with the padding sliced off to the
-    shape ``want``."""
+    (None a null pointer) and ``ints``, its count, and ``out`` with the
+    padding sliced off to the shape ``want``."""
     for t in acts:
         _check_cuda(t)
     route = trunk_route(acts[0].dtype)
@@ -188,7 +197,8 @@ def _launch(kind: str, acts, operands, want, setup) -> torch.Tensor:
     else:
         ts = [t for t, _ in operands]
     out, tensors, ints = setup(route, *ts)
-    _build.launch(_KERNELS[kind], out.device, *(t.data_ptr() for t in tensors), *ints,
+    _build.launch(_KERNELS[kind], out.device,
+                  *(None if t is None else t.data_ptr() for t in tensors), *ints,
                   TRUNK_ROUTES.index(route))
     trace.count(f"trunk.{kind}.{route}")
     return out if out.shape == want else out[tuple(map(slice, want))].contiguous()
@@ -212,7 +222,7 @@ def reflect_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     current stream, on the route ``trunk_route`` picks; on the CPU it is
     ``reflect_conv3x3_dx_reference``."""
     _check_dx(dy, w)
-    if dy.device.type == "cpu":
+    if _on_cpu(dy):
         return reflect_conv3x3_dx_reference(dy, w)
     return _launch_dx(dy, w)
 
@@ -258,35 +268,54 @@ def reflect_conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     ``csrc/reflect_conv3x3_dw.cu`` on the current stream, on the route
     ``trunk_route`` picks; on the CPU it is ``reflect_conv3x3_dw_reference``."""
     _check_dw(x, dy)
-    if x.device.type == "cpu":
+    if _on_cpu(x):
         return reflect_conv3x3_dw_reference(x, dy)
-    return _launch_dw(x, dy)
+    return _launch_dw(x, dy)[0]
 
 
-def _launch_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, with_db: bool = False):
+    """The dw kernel on ``x`` and ``dy``: (dw, db), db (Cout,) float32 the
+    sum of dy over N, H and W where ``with_db`` (counted ``trunk.dw.db``),
+    else None."""
+    c_out = dy.shape[3]
+    # room for the wgmma route's channels padded to 8
+    db = torch.empty(-(-c_out // 8) * 8, dtype=torch.float32, device=x.device) if with_db else None
+
     def setup(route, x, dy):
         c_in, c_out = x.shape[3], dy.shape[3]
         splits = dw_splits(x.shape, c_out, _build.sm_count(x.device.index), route)
-        part = torch.empty((splits, 3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
+        # float32 scratch: the splits' partials of dw, (splits, 3, 3, Cin,
+        # Cout), then of db, (splits, groups, Cout): on the wgmma route the
+        # blocks of a share's 3 kernel rows and input-channel tiles of 128
+        # split its segments between them
+        groups = 3 * -(-c_in // 128) if route == "bf16_wgmma" else 1
+        part = torch.empty(splits * (9 * c_in + groups) * c_out, dtype=torch.float32,
+                           device=x.device)
         dw = torch.empty((3, 3, c_in, c_out), dtype=torch.float32, device=x.device)
-        return dw, (x, dy, part, dw), (*x.shape, c_out, splits)
+        return dw, (x, dy, part, dw, db), (*x.shape, c_out, splits)
 
     with trace.span("trunk.dw"):
-        return _launch("dw", (x, dy), ((x, (3,)), (dy, (3,))),
-                       (3, 3, x.shape[3], dy.shape[3]), setup)
+        dw = _launch("dw", (x, dy), ((x, (3,)), (dy, (3,))), (3, 3, x.shape[3], c_out), setup)
+        if not with_db:
+            return dw, None
+        trace.count("trunk.dw.db")
+        return dw, db[:c_out]
 
 
 class _ReflectConv3x3(torch.autograd.Function):
     """The trunk conv with its hand-written backward (JAX ``_rc_fwd`` /
     ``_rc_bwd``): the cotangent is cast to x's dtype for ``dx`` and ``dw``,
     ``db`` is its float32 sum taken before that cast, ``dw`` comes back in
-    the weight's dtype. Double backward is refused."""
+    the weight's dtype. On the card, where w and b both need gradients and
+    the cotangent is already in x's dtype (the cast changes nothing), the
+    ``dw`` kernel sums ``db`` too; elsewhere it is a stock sum. Double
+    backward is refused."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
         ctx.b_dtype = b.dtype
-        if x.device.type == "cpu":
+        if _on_cpu(x):
             return reflect_conv3x3_reference(x, w, b)
         return _launch_forward(x, w, b)
 
@@ -299,9 +328,13 @@ class _ReflectConv3x3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = reflect_conv3x3_dx(g_cast, w)
         if ctx.needs_input_grad[1]:
-            dw = reflect_conv3x3_dw(x, g_cast).to(w.dtype)
+            if ctx.needs_input_grad[2] and g.dtype == x.dtype and not _on_cpu(x):
+                dw, db = _launch_dw(x, g_cast, with_db=True)
+            else:
+                dw = reflect_conv3x3_dw(x, g_cast)
+            dw = dw.to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.float().sum(dim=(0, 1, 2)).to(ctx.b_dtype)
+            db = (g.float().sum(dim=(0, 1, 2)) if db is None else db).to(ctx.b_dtype)
         return dx, dw, db
 
 

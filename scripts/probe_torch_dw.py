@@ -12,10 +12,13 @@ nvcc flags into build/probe_dw/ (all builds in parallel); its line gives
 ptxas's registers, spilled bytes and whether it serialised a wgmma for the
 wgmma kernel. Each is checked against the plain version at the smoke's dw
 shapes (within 1e-4 of the largest value, two runs bitwise equal) where it
-still computes dw, and timed at the batch-12 trunk shape (12, 64, 64, 256)
-bf16 beside cuDNN's bf16 backward-weight call: CUDA events over 20 calls, in
-the order variants, variants reversed, twice, and the main pass's and the
-reduce's device times under torch.profiler. Variants that drop work
+still computes dw, and its bias gradient (``with_db``) against the float64
+sum of dy (within 1e-6 of sum |dy| a channel, dw bitwise the one without
+it, two runs bitwise equal); each is timed at the batch-12 trunk shape (12,
+64, 64, 256) bf16 without and with the bias gradient beside cuDNN's bf16
+backward-weight call: CUDA events over 20 calls, in the order variants,
+variants reversed, twice, and the main pass's and the reduce's device times
+under torch.profiler. Variants that drop work
 ("noload", "nomma", "nostore") no longer compute dw: they split the time of
 the one they come from. Needs a GPU; prints one line per variant.
 """
@@ -102,17 +105,16 @@ def variant_source(src: str, variant: str) -> str:
 
 
 def ptxas_report(log: str, kernel: str) -> str:
-    """Registers and spill stores of ``kernel``'s entry in an -Xptxas -v log,
-    and whether ptxas serialised a wgmma anywhere (C7510-C7515)."""
-    regs = spills = "?"
-    entry = re.search(rf"Compiling entry function '\w*{kernel}\w*'(.*?)(?=Compiling entry|\Z)",
-                      log, re.S)
-    if entry:
-        m = re.search(r"Used (\d+) registers", entry.group(1))
-        regs = m.group(1) if m else "?"
-        m = re.search(r"(\d+) bytes spill stores", entry.group(1))
-        spills = m.group(1) if m else "?"
-    return (f"registers={regs} spill_store_bytes={spills} "
+    """Registers and spill stores of each of ``kernel``'s entries (its
+    template instances, in the log's order) in an -Xptxas -v log, and
+    whether ptxas serialised a wgmma anywhere (C7510-C7515)."""
+    found = []
+    for entry in re.findall(rf"Compiling entry function '\w*{kernel}\w*'(.*?)(?=Compiling entry|\Z)",
+                            log, re.S):
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes spill stores", entry)
+        found.append(f"{regs.group(1) if regs else '?'}/{spills.group(1) if spills else '?'}")
+    return (f"registers/spill_store_bytes={','.join(found) or '?'} "
             f"wgmma_serialized={bool(re.search(r'C751[0-5]', log))}")
 
 
@@ -138,8 +140,11 @@ def build(variants):
     return fns
 
 
-def correct(gen) -> tuple[bool, float]:
-    ok, worst = True, 0.0
+def correct(gen) -> tuple[bool, float, bool, float]:
+    """Whether the kernel computes dw at CASES, its worst distance from the
+    plain version over the largest value; whether it computes db, its worst
+    distance from the float64 sum over sum |dy|."""
+    ok, worst, ok_db, worst_db = True, 0.0, True, 0.0
     for shape, c_out in CASES:
         x, _, _ = cs.conv_inputs(shape, c_out, torch.bfloat16, gen)
         dy = torch.randn(shape[:3] + (c_out,), device="cuda", generator=gen).bfloat16()
@@ -148,7 +153,12 @@ def correct(gen) -> tuple[bool, float]:
         rel = float((dw - r).abs().max() / r.abs().max())
         worst = max(worst, rel)
         ok &= rel <= 1e-4 and torch.equal(dw, dw2)
-    return ok, worst
+        (dw3, db), (_, db2) = rb._launch_dw(x, dy, with_db=True), rb._launch_dw(x, dy, with_db=True)
+        rel_db = float(((db.double() - dy.double().sum(dim=(0, 1, 2))).abs()
+                        / dy.double().abs().sum(dim=(0, 1, 2))).max())
+        worst_db = max(worst_db, rel_db)
+        ok_db &= rel_db <= 1e-6 and torch.equal(db, db2) and torch.equal(dw3, dw)
+    return ok, worst, ok_db, worst_db
 
 
 def main(argv) -> int:
@@ -169,7 +179,8 @@ def main(argv) -> int:
         use(v)
         computes[v] = correct(gen)
         torch.cuda.synchronize()
-        print(f"check {v} computes_dw={computes[v][0]} worst_rel_to_max={computes[v][1]:.3e}",
+        print(f"check {v} computes_dw={computes[v][0]} worst_rel_to_max={computes[v][1]:.3e} "
+              f"computes_db={computes[v][2]} worst_db_over_abs_sum={computes[v][3]:.3e}",
               flush=True)
     x, _, _ = cs.conv_inputs(cs.TRAIN_SHAPE, 256, torch.bfloat16, gen)
     _, w, _ = cs.conv_inputs(cs.TRAIN_SHAPE, 256, torch.bfloat16, gen)
@@ -179,23 +190,26 @@ def main(argv) -> int:
     cudnn = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
         dy_nchw, xp, w_oihw, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [False, True, False])
     call = lambda: rb.reflect_conv3x3_dw(x, dy)  # noqa: E731
-    ms = {v: [] for v in ["cudnn", *variants]}
+    call_db = lambda: rb._launch_dw(x, dy, with_db=True)  # noqa: E731
+    ms = {v: [] for v in ["cudnn", *variants, *(f"{v}+db" for v in variants)]}
     for _ in range(2):
         ms["cudnn"].append(cs.event_ms(cudnn, 20))
         for v in variants + variants[::-1]:
             use(v)
             ms[v].append(cs.event_ms(call, 20))
+            ms[f"{v}+db"].append(cs.event_ms(call_db, 20))
         ms["cudnn"].append(cs.event_ms(cudnn, 20))
     print(f"cudnn_backward_weight event_ms={'/'.join(f'{t:.4f}' for t in ms['cudnn'])}",
           flush=True)
     flop = 2 * 9 * 12 * 64 * 64 * 256 * 256
     for v in variants:
         use(v)
-        us = cs.kernel_device_us(call, 10, KERNELS)
-        print(f"variant {v} computes_dw={computes[v][0]} "
-              f"event_ms={'/'.join(f'{t:.4f}' for t in ms[v])} "
-              + " ".join(f"{k}_us={t:.2f}" for k, t in us.items())
-              + f" main_tflops={flop / us['main'] / 1e6:.2f}", flush=True)
+        for db, fn in (("", call), ("+db", call_db)):
+            us = cs.kernel_device_us(fn, 10, KERNELS)
+            print(f"variant {v}{db} computes_dw={computes[v][0]} "
+                  f"event_ms={'/'.join(f'{t:.4f}' for t in ms[v + db])} "
+                  + " ".join(f"{k}_us={t:.2f}" for k, t in us.items())
+                  + f" main_tflops={flop / us['main'] / 1e6:.2f}", flush=True)
     _build.kernel = real
     return 0
 

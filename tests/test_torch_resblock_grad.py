@@ -3,7 +3,9 @@ against the JAX package: the plain ``dx`` and ``dw`` (the contracts of the
 CUDA kernels ``csrc/reflect_conv3x3_{dx,dw}.cu``) against the TPU kernels
 ``_dx_pallas`` / ``_dw_pallas`` in interpret mode, against ``jax.vjp`` of
 the JAX ``reflect_conv3x3``, and at H or W of 2 and 3 against the XLA
-formulations; and the ``autograd.Function`` that carries them.
+formulations; the bias gradient as the ``dw`` kernel sums it, against the
+stock sum and JAX's ``_rc_bwd``; and the ``autograd.Function`` that
+carries them, also with its launches recorded instead of run.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``."""
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from gan_variant_research_tpu.ops.pallas import resblock as jax_rb
 from gan_variant_research_tpu_torch.core import trace
+from gan_variant_research_tpu_torch.models.generator_resnet import ResidualBlock
 from gan_variant_research_tpu_torch.ops.kernels import _build
 from gan_variant_research_tpu_torch.ops.kernels import resblock as rb
 from gan_variant_research_tpu_torch.ops.nn_ops import instance_norm
@@ -347,8 +350,9 @@ def test_pad_dw_channels(shape, c_out):
     assert (x_p is x_t) == (c_in % 8 == 0) and (dy_p is dy_t) == (c_out % 8 == 0)
     assert torch.equal(x_p[..., :c_in], x_t) and not x_p[..., c_in:].any()
     assert torch.equal(dy_p[..., :c_out], dy_t) and not dy_p[..., c_out:].any()
-    got = _wgmma_dw_split(x_p, dy_p, splits=3)
+    got, db = _wgmma_dw_split(x_p, dy_p, splits=3)
     assert not got[:, :, c_in:].any() and not got[..., c_out:].any()
+    assert not db[c_out:].any()
     want = rb.reflect_conv3x3_dw_reference(x_t, dy_t).numpy()
     assert _rel(got[:, :, :c_in, :c_out].numpy(), want) <= 1e-5
 
@@ -362,7 +366,14 @@ def _wgmma_dw_split(x, dy, splits):
     image), each of the three taps kx reading the staged slot p + kx through
     x_chunk's remap (slot of column -1 -> column 1, of column W -> W - 2),
     its (64, Cin)^T (64, Cout) product summed into the share's partial; then
-    dw_reduce's ordered sum of the partials."""
+    dw_reduce's ordered sum of the partials. Returns (dw, db): db as the
+    kernel's DB instance sums it (dw_sum_db): a share's segments dealt out
+    to G = 3 x ceil(Cin / 128) groups (the blocks of its kernel rows and
+    input-channel tiles: segment j to group j % G), each half of a group's
+    segment (pixels 0-31, 32-63) added pixel by pixel in float32 into a
+    segment sum, added to that half's sum; a group's partial its first
+    half's sum plus its second's; then dw_reduce's sum of the partials in
+    the order share, group."""
     n, h, width, c_in = x.shape
     c_out = dy.shape[3]
     xf, dyf = x.float(), dy.float()
@@ -373,8 +384,11 @@ def _wgmma_dw_split(x, dy, splits):
         return -i if i < 0 else 2 * size - 2 - i if i >= size else i
 
     part = torch.zeros((splits, 3, 3, c_in, c_out))
+    groups = 3 * -(-c_in // 128)
+    part_db = torch.zeros((splits, groups, 2, c_out))   # by share, group and half segment
     for s in range(splits):
-        for g in range(total * s // splits, total * (s + 1) // splits):
+        lo = total * s // splits
+        for g in range(lo, total * (s + 1) // splits):
             w0, row, img = g % segs_w * seg, g // segs_w % h, g // (segs_w * h)
             d = torch.zeros((seg, c_out))
             d[:min(seg, width - w0)] = dyf[img, row, w0:w0 + seg]
@@ -389,19 +403,31 @@ def _wgmma_dw_split(x, dy, splits):
                 for kx in range(3):
                     a = box[[slots[p + kx] for p in range(seg)]]
                     part[s, ky, kx] += a.T @ d
+            for half in range(2):   # each segment of dy summed once, on group (g - lo) % G
+                seg_db = torch.zeros(c_out)
+                for p in range(32 * half, 32 * half + 32):
+                    seg_db = seg_db + d[p]
+                part_db[s, (g - lo) % groups, half] += seg_db
     out = part[0].clone()
     for s in range(1, splits):
         out += part[s]
-    return out
+    db = torch.zeros(c_out)
+    for s in range(splits):
+        for group in range(groups):
+            db = db + (part_db[s, group, 0] + part_db[s, group, 1])
+    return out, db
 
 
-@pytest.mark.parametrize("shape,c_out,splits", [
+DW_SPLIT_CASES = [
     ((2, 2, 2, 8), 8, 1), ((1, 2, 3, 8), 16, 2), ((1, 3, 2, 8), 8, 3),
     ((2, 3, 3, 16), 8, 4), ((1, 5, 5, 8), 8, 2), ((2, 6, 7, 16), 24, 5),
     ((1, 3, 65, 8), 8, 2),     # two segments a row, the second one pixel wide
     ((1, 2, 130, 8), 16, 3),   # three segments a row, the last two pixels wide
     ((1, 2, 64, 8), 8, 1),     # one whole segment: column W is slot 65
-])
+]
+
+
+@pytest.mark.parametrize("shape,c_out,splits", DW_SPLIT_CASES)
 def test_wgmma_dw_split_matches_reference_pallas_and_xla(shape, c_out, splits):
     """The segments, the row reflect by the producer's choice of row, the
     column reflect by the slot remap, the three taps on one staged row and
@@ -409,8 +435,108 @@ def test_wgmma_dw_split_matches_reference_pallas_and_xla(shape, c_out, splits):
     and 3 and where W is not a multiple of 64 too."""
     x, _, _, dy = _inputs(shape, c_out, seed=13)
     x_t, dy_t = torch.from_numpy(x), torch.from_numpy(dy)
-    got = _wgmma_dw_split(x_t, dy_t, splits).numpy()
+    got = _wgmma_dw_split(x_t, dy_t, splits)[0].numpy()
     # float32 sums over N*H*W products in another order
     assert _rel(got, rb.reflect_conv3x3_dw_reference(x_t, dy_t).numpy()) <= 1e-5
     assert _rel(got, jax_rb._xla_weight_grad(jnp.asarray(x), jnp.asarray(dy))) <= 1e-4
     assert _rel(got, jax_rb._dw_pallas(jnp.asarray(x), jnp.asarray(dy))) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,c_out,splits", DW_SPLIT_CASES)
+@pytest.mark.parametrize("offset", [0.0, 3.0], ids=["centred", "offset"])
+def test_wgmma_db_split_matches_the_stock_sum_and_jax(shape, c_out, splits, offset):
+    """The bias gradient as the dw kernel's DB instance sums it (each
+    share's segments dealt out to its blocks' groups, half segments of 32
+    pixels in order, zero fill past W, partials added in order) is the cotangent's float32 sum over N, H and W, as the stock sum
+    and JAX's ``_rc_bwd`` take it, to 1e-6 of the sum of its magnitudes a
+    channel, at H and W of 2 and 3, W past a segment, and 1 to 5 shares;
+    also where the cotangent is far from centred (the running sums grow)."""
+    x, w, _, dy = _inputs(shape, c_out, seed=14)
+    x16 = torch.from_numpy(x).bfloat16()
+    g = (torch.from_numpy(dy) + offset).bfloat16()
+    _, db = _wgmma_dw_split(x16, g, splits)
+    assert db.dtype == torch.float32 and db.shape == (c_out,)
+    scale = g.double().abs().sum(dim=(0, 1, 2))
+    jax_db = jax_rb._rc_bwd((jnp.asarray(x16.float().numpy()).astype(jnp.bfloat16),
+                             jnp.asarray(w)),
+                            jnp.asarray(g.float().numpy()).astype(jnp.bfloat16))[2]
+    for want in (g.float().sum(dim=(0, 1, 2)), torch.from_numpy(np.array(jax_db))):
+        assert ((db.double() - want.double()).abs() <= 1e-6 * scale).all()
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """CPU tensors sent down the kernel path with every launch recorded
+    instead of run (``(kernel, args)``: pointers, None for a null one, then
+    ints), on a card of 132 SMs, with counters of their own."""
+    calls = []
+    monkeypatch.setattr(rb, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(_build, "launch", lambda name, device, *args: calls.append((name, args)))
+    monkeypatch.setattr(_build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(trace, "COUNTS", {})
+    return calls
+
+
+def _launched(calls, name):
+    """The argument lists of the recorded launches of ``name``, each checked
+    against the kernel's declared pointer and int counts."""
+    got = [args for n, args in calls if n == name]
+    _, n_ptr, n_int = _build.KERNELS[name]
+    assert all(len(args) == n_ptr + n_int for args in got)
+    return got
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_wgmma"),
+                                         (torch.float32, "f32_fma")])
+def test_backward_asks_the_dw_kernel_for_db(dtype, route, recorded_launches):
+    """Where w and b need gradients and the cotangent is in x's dtype, the
+    backward launches dw with five pointers, the fifth the db it returns, and
+    counts ``trunk.dw.db`` once a launch; it sums nothing itself."""
+    x, w, b, dy = map(torch.from_numpy, _inputs((1, 4, 5, 8), 16, seed=15))
+    x = x.to(dtype).requires_grad_()
+    w, b = w.requires_grad_(), b.requires_grad_()
+    splits = rb.dw_splits((1, 4, 5, 8), 16, 132, route)
+    for n in (1, 2):
+        y = rb.reflect_conv3x3(x, w, b)
+        _, dw, db = torch.autograd.grad(y, (x, w, b), dy.to(dtype))
+        args = _launched(recorded_launches, "reflect_conv3x3_dw")[n - 1]
+        assert args[3] == dw.data_ptr() and args[4] == db.data_ptr()
+        assert db.dtype == torch.float32 and db.shape == (16,)
+        assert args[5:] == (1, 4, 5, 8, 16, splits, rb.TRUNK_ROUTES.index(route))
+        assert trace.COUNTS["trunk.dw.db"] == n and trace.COUNTS[f"trunk.dw.{route}"] == n
+
+
+def test_backward_keeps_the_stock_sum_where_w_is_frozen(recorded_launches):
+    """No weight gradient, no dw launch: db is the stock float32 sum."""
+    x, w, b, dy = map(torch.from_numpy, _inputs((1, 4, 5, 8), 8, seed=16))
+    x16, g = x.bfloat16().requires_grad_(), dy.bfloat16()
+    b.requires_grad_()
+    _, db = torch.autograd.grad(rb.reflect_conv3x3(x16, w, b), (x16, b), g)
+    assert not _launched(recorded_launches, "reflect_conv3x3_dw")
+    assert len(_launched(recorded_launches, "reflect_conv3x3_dx")) == 1
+    assert torch.equal(db, g.float().sum(dim=(0, 1, 2)))
+    assert "trunk.dw.db" not in trace.COUNTS
+
+
+def test_bias_free_block_launches_dw_with_a_null_db(recorded_launches):
+    """The bias-free ResidualBlock (CycleGAN's) hands the conv an all-zero
+    bias that needs no gradient: both dw launches get a null db pointer and
+    nothing counts ``trunk.dw.db``."""
+    block = ResidualBlock(8, use_bias=False, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_inputs((1, 4, 5, 8), 8, seed=17)[0]).bfloat16().requires_grad_()
+    torch.autograd.grad(block(x).float().sum(), [x, *block.parameters()])
+    launched = _launched(recorded_launches, "reflect_conv3x3_dw")
+    assert len(launched) == 2 and all(args[4] is None for args in launched)
+    assert trace.COUNTS["trunk.dw.bf16_wgmma"] == 2 and "trunk.dw.db" not in trace.COUNTS
+
+
+def test_launch_dw_slices_db_off_padded_channels(recorded_launches):
+    """On the wgmma route a Cout of 13 is padded to 16: the kernel gets the
+    padded count and a db of 16, and the wrapper returns its first 13."""
+    x, _, _, dy = map(torch.from_numpy, _inputs((1, 3, 4, 8), 13, seed=18))
+    dw, db = rb._launch_dw(x.bfloat16(), dy.bfloat16(), with_db=True)
+    (args,) = _launched(recorded_launches, "reflect_conv3x3_dw")
+    assert args[4] == db.data_ptr() and args[9] == 16
+    assert db.shape == (13,) and dw.shape == (3, 3, 8, 13)
+    assert rb._launch_dw(x.bfloat16(), dy.bfloat16())[1] is None
