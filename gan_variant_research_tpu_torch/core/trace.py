@@ -4,8 +4,11 @@
 train steps' phases, the optimizer's updates, the trunk kernels' wrappers
 (``trunk.fwd``, ``trunk.dx``, ``trunk.dw``), the attention kernels' wrappers
 (``attn.fwd``, ``attn.dkv``, ``attn.dq``, around the plain versions too on
-the CPU) and the variant generator's blocks (``variant.attn``,
-``variant.channel``, ``variant.style``).
+the CPU), the variant generator's blocks (``variant.attn``,
+``variant.channel``, ``variant.style``) and the U-Net generator's levels
+and norms (``unet.encoder``, ``unet.bottleneck``, ``unet.decoder``, once an
+apply each, and ``unet.norm`` around each affine norm's forward:
+``models/generator_unet.py``).
 Spans are off by default, and then ``span`` returns one shared no-op
 context: a flag read, no allocation, no clock read, nothing on the device.
 ``enable()`` turns them on: each span closed appends a ``Span`` to an
@@ -26,8 +29,10 @@ launches by route, counted on the host as each wrapper launches
 (``trunk.fwd.<route>``, ``trunk.dx.<route>``, ``trunk.dw.<route>``,
 ``trunk.dw.db`` (a ``dw`` launch that also sums the bias gradient),
 ``attn.fwd.<route>``, ``attn.dkv``, ``attn.dq``; a CUDA-graph replay
-counts none), and how each CUT step ran (``cut.graph.eager``,
-``cut.graph.capture``, ``cut.graph.replay``: ``train/cut_trainer.py``).
+counts none), how each CUT step ran (``cut.graph.eager``,
+``cut.graph.capture``, ``cut.graph.replay``: ``train/cut_trainer.py``), and
+the U-Net's affine norm forwards (``unet.norm``: 15 an apply, 45 a CycleGAN
+step).
 """
 
 from __future__ import annotations

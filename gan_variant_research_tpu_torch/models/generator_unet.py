@@ -22,7 +22,13 @@ flax's ``'SAME'``:
   (in, out, kh, kw) order (``convert._hwio_to_convtranspose``) gives the
   same values on its first 2H rows and columns (it pads (2, 2)).
 
-Runs no hand-written kernel: every conv is cuDNN on the card.
+Runs no hand-written kernel: every conv is cuDNN on the card, and the
+norm is a stock float32 chain. Its spans (``core/trace.py``): one apply is
+``unet.encoder`` (stem and four downs), ``unet.bottleneck`` and
+``unet.decoder`` (the ups, skip concatenations, reduces and output conv);
+each ``AffineInstanceNorm`` forward is a ``unet.norm`` span inside them and
+adds 1 to the counter ``unet.norm`` (15 an apply). The norms' backward runs
+on autograd's thread, outside any span.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.layers import Conv2d
 
 # the JAX module's count of each submodule
@@ -55,7 +62,9 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class AffineInstanceNorm(nn.Module):
     """Instance norm over H, W with learnable ``gamma`` / ``beta``, in float32
-    (biased variance, eps 1e-5), cast back to the input dtype."""
+    (biased variance, eps 1e-5), cast back to the input dtype. The forward
+    is a ``unet.norm`` span and counts ``unet.norm``; the backward, on
+    autograd's thread, is in no span."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -64,11 +73,13 @@ class AffineInstanceNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=(1, 2), keepdim=True)
-        var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
-        out = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (self.gamma.float() * out + self.beta.float()).to(x.dtype)
+        trace.count("unet.norm")
+        with trace.span("unet.norm"):
+            x32 = x.float()
+            mean = x32.mean(dim=(1, 2), keepdim=True)
+            var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+            out = (x32 - mean) * torch.rsqrt(var + self.eps)
+            return (self.gamma.float() * out + self.beta.float()).to(x.dtype)
 
 
 class _SameConv(nn.Module):
@@ -150,13 +161,16 @@ class UNetGenerator(nn.Module):
         conv = lambda i: getattr(self, f"_SameConv_{i}")  # noqa: E731
         h = x.to(self.dtype)
         skips = []
-        for i in range(5):                                   # stem, 4 downs
-            h = self._conv_block(h, conv(i), i)
-            skips.append(h)
-        for i in (5, 6):                                     # bottleneck
-            h = self._conv_block(h, conv(i), i)
-        for i in range(N_UPS):                               # up, concat, reduce
-            h = self._conv_block(h, getattr(self, f"ConvTranspose_{i}"), 7 + 2 * i)
-            h = torch.cat([h, skips[3 - i]], dim=-1)
-            h = self._conv_block(h, conv(7 + i), 8 + 2 * i)
-        return torch.tanh(conv(11)(h))
+        with trace.span("unet.encoder"):                     # stem, 4 downs
+            for i in range(5):
+                h = self._conv_block(h, conv(i), i)
+                skips.append(h)
+        with trace.span("unet.bottleneck"):
+            for i in (5, 6):
+                h = self._conv_block(h, conv(i), i)
+        with trace.span("unet.decoder"):                     # up, concat, reduce
+            for i in range(N_UPS):
+                h = self._conv_block(h, getattr(self, f"ConvTranspose_{i}"), 7 + 2 * i)
+                h = torch.cat([h, skips[3 - i]], dim=-1)
+                h = self._conv_block(h, conv(7 + i), 8 + 2 * i)
+            return torch.tanh(conv(11)(h))
