@@ -71,6 +71,20 @@ Phases, one line each:
               gradient is rounding noise times inv^3); forward and backward
               timed at NORM_TIMED (queued CUDA events; each kernel on the
               profiler's clock) beside the chain and the byte bounds;
+   affine_norm - the U-Net's affine norm and ReLU (the affine instance of
+              csrc/instance_norm.cu, through affine_instance_norm) against
+              autograd of the stock float32 chain (ops/nn_ops.py::
+              affine_instance_norm, then the ReLU) at its five norm shapes
+              at 256^2 (AFFINE_SHAPES) and G batches 16, 32 and 48, on a
+              centred and a mean-offset input: counters (unet.norm.fwd.kernel,
+              unet.norm.bwd.kernel), mean and centred variance against
+              float64, y within one bf16 ulp of its largest term, dx within
+              1e-2 of the chain and 2^-8 of the contract by norm, dgamma and
+              dbeta within 1e-5 of sum |g' * xhat| and sum |g'|, the
+              backward's ReLU mask the forward's, two launches bitwise;
+              forward, backward and both timed at AFFINE_TIMED (the stem and
+              the bottleneck; queued CUDA events) beside the chain and the
+              byte bounds;
 4. autograd - the gradients of one float32 trunk conv and of one float32
               attention core (4, 4096, 32, 256) through their
               autograd.Functions against autograd of the plain versions;
@@ -218,7 +232,8 @@ kernel table as JSON (each row's times and bound at the shape its
 its batch-32 served time, bound and cuDNN time beside them; the attention
 rows also carry the d_qk-128 instance's launches and times under
 ``dqk128_*``, and SDPA's backward at d_v 256 beside the port's; the trunk
-rows CycleGAN's launches and times under ``cyclegan_*``); the last line is
+rows CycleGAN's launches and times under ``cyclegan_*``; the affine norm's
+row its launches a U-Net CycleGAN step and its times at the stem); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -479,7 +494,9 @@ def before_instance_norm(name: str) -> bool:
 def phase_build() -> None:
     from gan_variant_research_tpu_torch.ops.kernels import _build
 
-    builds = {name: functools.partial(_build.kernel, name) for name in _build.KERNELS}
+    # one build a source (an entry binds to its library at its first use)
+    builds = {src.stem: functools.partial(_build.load_library, src.stem)
+              for src in sorted(_build.CSRC.glob("*.cu"))}
 
     def timed(fn):
         t = time.perf_counter()
@@ -660,6 +677,7 @@ NORM_TIMED = ((12, 64, 64, 256), (12, 256, 256, 64), (32, 64, 64, 256), (32, 256
 NORM_KERNELS = {"fwd": ("inorm_fwd_stats", "inorm_fwd_finalize", "inorm_fwd_apply"),
                 "bwd": ("inorm_bwd_stats", "inorm_bwd_finalize", "inorm_bwd_apply")}
 NORM_FLAGSHIP_STEP = 23 + 22 + 23      # full, taps-only and identity passes
+UNET_NORMS_A_STEP = 45                 # 15 affine norms an apply, 3 G applies a CycleGAN step
 NORM_SERVED_BATCH = 23
 
 
@@ -689,18 +707,21 @@ def check_norm_counts(before: dict, fwd: int, bwd: int, what: str) -> dict:
 def norm_device_launches(prof) -> dict | None:
     """How many times each norm kernel ran on the card in a torch.profiler
     session (its device events), by direction: ``{"fwd": n, "bwd": n}``,
-    the three kernels of a direction checked to have run alike; None if the
-    session holds no device event at all (the tracer now and then returns
-    none, ``kernel_device_us``)."""
+    the three kernels of a direction checked to have run alike (the affine
+    instance's backward, the U-Net's, runs its finalize twice: per (n, c),
+    then over n); None if the session holds no device event at all (the
+    tracer now and then returns none, ``kernel_device_us``)."""
     from torch.autograd import DeviceType
 
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not names:
         return None
     ran = {k: sum(k in n for n in names) for ks in NORM_KERNELS.values() for k in ks}
+    twice = {"inorm_bwd_finalize": sum("affine::inorm_bwd_stats" in n for n in names)}
     out = {}
     for d, ks in NORM_KERNELS.items():
-        check(len({ran[k] for k in ks}) == 1, f"norm {d} kernels ran unalike: {ran}")
+        check(all(ran[k] - twice.get(k, 0) == ran[ks[0]] for k in ks),
+              f"norm {d} kernels ran unalike: {ran}")
         out[d] = ran[ks[0]]
     return out
 
@@ -880,6 +901,218 @@ def phase_norm(gen) -> dict:
               bwd_share_of_moved=f"{row['moved_bwd'] / row['bwd']:.3f}")
         times[shape] = row
         del x, g, stats
+        torch.cuda.empty_cache()
+    return times
+
+
+# The U-Net's affine norm shapes at 256^2 and ngf 64 (the stem, the downs,
+# the bottleneck's 16^2 x 512) at its G batches 16, 32 and 48 in a batch-16
+# CycleGAN step, each on a centred input and on one whose |mean| is far past
+# its std; timed at the stem's and the bottleneck's largest batches.
+AFFINE_SHAPES = tuple((n, 256 >> i, 256 >> i, min(64 << i, 512))
+                      for n in (16, 32, 48) for i in range(5))
+AFFINE_INPUTS = {"centred": (0.4, 1.5), "offset": (-48.0, 1.0)}   # mean, std
+AFFINE_TIMED = ((16, 256, 256, 64), (48, 16, 16, 512))
+
+
+def affine_chain(x, gamma, beta):
+    from gan_variant_research_tpu_torch.ops import nn_ops
+
+    return torch.relu(nn_ops.affine_instance_norm(x, gamma, beta, 1e-5))
+
+
+def affine_inputs(shape, kind, gen):
+    """bf16 x and cotangent g; float32 gamma in [0.5, 1.5), beta in [-0.5, 0.5)."""
+    mean, std = AFFINE_INPUTS[kind]
+    x = (torch.randn(shape, device="cuda", generator=gen) * std + mean).bfloat16()
+    g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+    gamma = torch.rand(shape[3], device="cuda", generator=gen) + 0.5
+    beta = torch.rand(shape[3], device="cuda", generator=gen) - 0.5
+    return x, g, gamma, beta
+
+
+def affine_forward_ulps(x, y, yp, stats, sp, gamma, beta, eps) -> tuple[float, float]:
+    """The affine forward ``y`` (the kernel's, on its statistics ``stats``)
+    against the chain's ``yp`` (on its statistics ``sp``), with the ReLU:
+
+    - against the contract's apply on ``stats``: both are float32 with one
+      rounding (the kernel's one FMA, the chain's multiplies and add), so
+      they differ by one flip of the last bit at most: the largest |y -
+      contract| in bf16 ulps of the largest of |gamma * r * (x - mean)|,
+      |beta| and |contract| (y, a sum of the two terms, may be twice the
+      larger);
+    - against the chain: the two statistics, float32 sums in another order,
+      differ in their last bits, and the exact results then differ by
+      delta = |gamma| * (|r_k - r| * |x - mean| + r_k * |mean_k - mean|),
+      which an input whose |mean| is far past its std makes larger than an
+      ulp of small terms: the largest |y - yp| over one bf16 ulp of the
+      chain's larger term plus delta (float64; 1 + 2^-16 of it allowed for
+      each side's float32 rounding before its bf16 one).
+
+    Returns (ulps against the contract, share of the bound against the
+    chain); 1.0 is the limit of each."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    def terms(s):
+        centred = x.float() - s[:, 0, None, None]
+        r = torch.rsqrt(s[:, 1, None, None] + eps)
+        return centred, r, (gamma * r * centred).abs()
+
+    contract = inm.affine_norm_apply_reference(x, stats, gamma, beta, True, eps)
+    _, r_k, big_k = terms(stats)
+    larger = torch.maximum(torch.maximum(big_k, beta.abs().expand_as(big_k)),
+                           contract.float().abs())
+    apply_ulps = float(((y.float() - contract.float()).abs() / bf16_ulp(larger)).max())
+    del contract, big_k, larger
+    centred, r, big = terms(sp)
+    larger = torch.maximum(torch.maximum(big, beta.abs().expand_as(big)), yp.float().abs())
+    delta = gamma.double().abs() * ((r_k.double() - r.double()).abs() * centred.double().abs()
+                                    + r_k.double() * (stats[:, 0] - sp[:, 0]).double().abs()
+                                    [:, None, None])
+    bound = bf16_ulp(larger).double() * (1 + 2.0 ** -16) + delta
+    fwd = float(((y.double() - yp.double()).abs() / bound).max())
+    return apply_ulps, fwd
+
+
+def affine_case(x, g, gamma, beta, eps) -> dict:
+    """The affine kernel pair (with the ReLU, through ``affine_instance_norm``)
+    against autograd of the stock float32 chain on the same input, and
+    against its contract on its own statistics and mask; checked, and the
+    errors returned:
+
+    - one call a direction on the kernel route, none plain; a second launch
+      of each gives the same bits;
+    - the mean within 4e-6 of |mean| + std and the centred variance within
+      1e-4 relative of their float64 values on the same bf16 input;
+    - y against its contract's apply on its own statistics, and against
+      the chain (``affine_forward_ulps``);
+    - dx within 1e-2 of the chain's by norm and 2^-8 of the contract's;
+      dgamma and dbeta per channel within 1e-5 of sum |g' * xhat| and sum
+      |g'| of both (float32 sums of up to ~3e6 terms in another order);
+    - the backward's ReLU mask is the forward's: the unmasked backward of
+      the masked cotangent gives the same bits."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    before = unet_norm_counts()
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    y = inm.affine_instance_norm(*leaves, eps, True)
+    dx, dgamma, dbeta = torch.autograd.grad(y, leaves, g)
+    y = y.detach()
+    got = {k: v - before[k] for k, v in unet_norm_counts().items()}
+    want = {"fwd.kernel": 1, "fwd.plain": 0, "bwd.kernel": 1, "bwd.plain": 0}
+    check(got == want, f"affine norm calls by route {got}, want {want}")
+    _, y2, stats = inm._launch_affine_forward(x, gamma, beta, eps, True)
+    second = inm._launch_affine_backward(g, x, stats, gamma, beta, eps, True)
+    repeat = torch.equal(y, y2) and all(torch.equal(a, b)
+                                        for a, b in zip((dx, dgamma, dbeta), second))
+
+    x64 = x.double()
+    mean64 = x64.mean(dim=(1, 2))
+    var64 = (x64 - mean64[:, None, None]).square().mean(dim=(1, 2))
+    mean_err = float(((stats[:, 0] - mean64).abs() / (mean64.abs() + var64.sqrt())).max())
+    var_err = float(((stats[:, 1] - var64).abs() / var64).max())
+    del x64
+
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    yp = affine_chain(*leaves)
+    dxp, dgp, dbp = torch.autograd.grad(yp, leaves, g)
+    yp = yp.detach()
+    sp = inm.affine_norm_stats_reference(x)
+    apply_ulps, fwd_ulps = affine_forward_ulps(x, y, yp, stats, sp, gamma, beta, eps)
+    centred = x.float() - sp[:, 0, None, None]
+    r = torch.rsqrt(sp[:, 1, None, None] + eps)
+    kept = torch.where(yp > 0, g, 0).float()
+    g_sum = kept.abs().sum(dim=(0, 1, 2))
+    gx_sum = (kept * (centred * r)).abs().sum(dim=(0, 1, 2))
+    del kept, centred
+
+    own = torch.where(y > 0, g, 0)
+    cdx, cdg, cdb = inm.affine_norm_backward_reference(own, x, stats, gamma, beta, False, eps)
+    unmasked = inm._launch_affine_backward(own, x, stats, gamma, beta, eps, False)
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())  # noqa: E731
+    out = {"apply_ulps": apply_ulps, "fwd_ulps": fwd_ulps, "mean_err": mean_err, "var_err": var_err,
+           "dx_rel": rel(dx, dxp), "dx_rel_contract": rel(dx, cdx),
+           "dbeta_of_sum": float(((dbeta - dbp).abs() / g_sum).max()),
+           "dgamma_of_sum": float(((dgamma - dgp).abs() / gx_sum).max()),
+           "dbeta_of_sum_contract": float(((dbeta - cdb).abs() / g_sum).max()),
+           "dgamma_of_sum_contract": float(((dgamma - cdg).abs() / gx_sum).max()),
+           "fwd_bitwise_share": float((y == yp).float().mean()),
+           "mask_is_forward": all(torch.equal(a, b)
+                                    for a, b in zip((dx, dgamma, dbeta), unmasked)),
+           "repeat_bitwise": repeat}
+    check(repeat, "affine norm: two launches differ")
+    check(out["mask_is_forward"], "affine norm: the backward's ReLU mask is not the forward's")
+    check(mean_err <= 4e-6 and var_err <= 1e-4,
+          f"affine norm statistics: mean {mean_err}, centred variance {var_err} from float64")
+    check(apply_ulps <= 1.0, f"affine norm forward {apply_ulps} ulps from its contract")
+    check(fwd_ulps <= 1.0, f"affine norm forward {fwd_ulps} of its bound from the chain")
+    check(out["dx_rel"] <= 1e-2, f"affine norm dx {out['dx_rel']} from the chain")
+    check(out["dx_rel_contract"] <= 2.0 ** -8,
+          f"affine norm dx {out['dx_rel_contract']} from its contract")
+    sums = [out[k] for k in ("dbeta_of_sum", "dgamma_of_sum", "dbeta_of_sum_contract",
+                             "dgamma_of_sum_contract")]
+    check(max(sums) <= 1e-5, f"affine norm dgamma, dbeta off the chain or contract: {sums}")
+    return out
+
+
+def phase_affine_norm(gen) -> dict:
+    """The U-Net's affine norm kernel pair, with its ReLU, against the stock
+    float32 chain at AFFINE_SHAPES on centred and offset inputs
+    (``affine_case``); then forward, backward and both queued ahead of the
+    device at AFFINE_TIMED beside the chain's, and each direction's
+    unique-byte bound. Returns {shape: times in ms}."""
+    from gan_variant_research_tpu_torch.ops.kernels import instance_norm as inm
+
+    eps = 1e-5
+    worst = {}
+    for shape in AFFINE_SHAPES:
+        for kind in AFFINE_INPUTS:
+            x, g, gamma, beta = affine_inputs(shape, kind, gen)
+            e = affine_case(x, g, gamma, beta, eps)
+            phase("affine_norm", shape="x".join(map(str, shape)), input=kind, relu=True,
+                  **{k: f"{v:.3e}" if isinstance(v, float) else v for k, v in e.items()})
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in e.items()
+                     if isinstance(v, float)}
+            del x, g, gamma, beta
+            torch.cuda.empty_cache()
+    phase("affine_norm", cases=len(AFFINE_SHAPES) * len(AFFINE_INPUTS),
+          **{f"worst_{k}": f"{v:.3e}" for k, v in worst.items() if k != "fwd_bitwise_share"})
+
+    times = {}
+    for shape in AFFINE_TIMED:
+        x, g, gamma, beta = affine_inputs(shape, "centred", gen)
+        _, _, stats = inm._launch_affine_forward(x, gamma, beta, eps, True)
+        numel = x.numel()
+
+        def kernel_both():
+            leaves = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            torch.autograd.grad(inm.affine_instance_norm(*leaves, eps, True), leaves, g)
+
+        def plain_fwd():
+            with torch.no_grad():
+                affine_chain(x, gamma, beta)
+
+        def plain_both():
+            leaves = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            torch.autograd.grad(affine_chain(*leaves), leaves, g)
+
+        row = {"fwd": queued_us(lambda: inm._launch_affine_forward(x, gamma, beta, eps, True)),
+               "bwd": queued_us(lambda: inm._launch_affine_backward(g, x, stats, gamma, beta,
+                                                                    eps, True)),
+               "fwd_bwd": queued_us(kernel_both, 10), "plain_fwd": queued_us(plain_fwd, 10),
+               "plain_fwd_bwd": queued_us(plain_both, 10)}
+        row = {k: v / 1e3 for k, v in row.items()}
+        # bound: x read and y written (4 bytes an element) forward; g and x
+        # read and dx written (6) backward
+        row["bound_fwd"] = 4 * numel / PEAK_BYTES * 1e3
+        row["bound_bwd"] = 6 * numel / PEAK_BYTES * 1e3
+        phase("timing", op="affine_instance_norm_relu", shape="x".join(map(str, shape)),
+              dtype="bf16", **{f"{k}_ms": f"{v:.4f}" for k, v in row.items()},
+              fwd_share_of_bound=f"{row['bound_fwd'] / row['fwd']:.3f}",
+              bwd_share_of_bound=f"{row['bound_bwd'] / row['bwd']:.3f}",
+              plain_over_kernel=f"{row['plain_fwd_bwd'] / row['fwd_bwd']:.2f}")
+        times[shape] = row
+        del x, g, gamma, beta, stats
         torch.cuda.empty_cache()
     return times
 
@@ -2895,13 +3128,21 @@ def cyclegan_fp32_vs_plain(cfg) -> tuple[float, dict]:
     return loss_rel, rels
 
 
+def unet_norm_counts() -> dict:
+    from gan_variant_research_tpu_torch.core import trace
+
+    return {f"{d}.{r}": trace.COUNTS.get(f"unet.norm.{d}.{r}", 0)
+            for d in ("fwd", "bwd") for r in ("kernel", "plain")}
+
+
 def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
     """A warmup step and CYCLEGAN_TIMED_STEPS bf16 steps of ``cfg`` from a
     seeded state on seeded uint8 batches: every step's trunk launches (54
     forwards, 54 dx, 54 dw, each on its bf16 wgmma route, or none without a
-    ResNet), finite losses, all four nets moved; ms a step over the timed
-    steps run back to back (host clock ending in a synchronise), peak
-    memory, then one profiled step."""
+    ResNet), the U-Net's affine norms (45 forwards and 45 backwards a step
+    on the kernels, none plain, or none without a U-Net), finite losses, all
+    four nets moved; ms a step over the timed steps run back to back (host
+    clock ending in a synchronise), peak memory, then one profiled step."""
     from gan_variant_research_tpu_torch.ops.kernels import resblock
     from gan_variant_research_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 
@@ -2911,6 +3152,9 @@ def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
              for k in ("g_params", "da_params", "db_params")}
     batches = cyclegan_batches(rng, cfg, CYCLEGAN_TIMED_STEPS + 1)
     want = (3 * TRUNK_CONVS,) * 3 if expect_trunk else (0, 0, 0)
+    unet_norms = UNET_NORMS_A_STEP if cfg["model"]["generator"] == "unet" else 0
+    want_norms = {"fwd.kernel": unet_norms, "fwd.plain": 0, "bwd.kernel": unet_norms,
+                  "bwd.plain": 0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(resblock)
@@ -2920,9 +3164,13 @@ def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
             torch.cuda.synchronize()
             t = time.perf_counter()
         before, routes, dbs = counts(resblock), route_counts(resblock), db_count()
+        norms_before = unet_norm_counts()
         state, losses = trainer.train_step(state, a, b)
         step_counts = tuple(x - y for x, y in zip(counts(resblock), before))
         check(step_counts == want, f"{name} step {i} launched {step_counts}, want {want}")
+        norms = {k: v - norms_before[k] for k, v in unet_norm_counts().items()}
+        check(norms == want_norms, f"{name} step {i}: U-Net norms by route {norms}, "
+              f"want {want_norms}")
         # the bias-free trunk: no dw launch sums a bias gradient
         check(db_count() == dbs, f"{name} step {i}: {db_count() - dbs} dw launches summed db")
         if expect_trunk:
@@ -2947,7 +3195,8 @@ def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
     b = cfg["training"]["batch_size"]
     phase("cyclegan", cell=name, generator=cfg["model"]["generator"], dtype="bf16", batch=b,
           steps=f"1+{CYCLEGAN_TIMED_STEPS}", launches_fwd_dx_dw="/".join(map(str, launches)),
-          per_step="/".join(map(str, want)), step_ms=f"{ms:.2f}",
+          per_step="/".join(map(str, want)), unet_norms_fwd_bwd=f"{unet_norms}/{unet_norms}",
+          step_ms=f"{ms:.2f}",
           images_per_s=f"{b / ms * 1e3:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
           **{f"{k}_max_move": f"{v:.3e}" for k, v in {**moved, **g_moved}.items()},
           **{k: f"{v:.4f}" for k, v in last_losses.items()})
@@ -2956,7 +3205,7 @@ def cyclegan_steps(name: str, cfg, rng, expect_trunk: bool) -> dict:
                         rows=15)
     del trainer, state, batches, start
     torch.cuda.empty_cache()
-    return {"ms": ms, "peak_gb": peak_gb, "launches": launches, **busy}
+    return {"ms": ms, "peak_gb": peak_gb, "launches": launches, "unet_norms": norms, **busy}
 
 
 def queued_us(fn, iters: int = 50) -> float:
@@ -3237,6 +3486,7 @@ def main() -> int:
     errs = phase_kernels(gen)
     errs.update(phase_attention_kernels(gen))
     norm_times = phase_norm(gen)
+    affine_times = phase_affine_norm(gen)
     phase_attention_tolerance()
     phase_autograd(gen)
     phase_attention_autograd(gen)
@@ -3354,6 +3604,22 @@ def main() -> int:
          "launches_a_step": norm_launches,
          **{f"{k}_{'x'.join(map(str, shape))}": norm_times[shape][k]
             for shape in NORM_TIMED[:2]
+            for k in ("fwd", "bwd", "fwd_bwd", "plain_fwd", "plain_fwd_bwd", "bound_fwd",
+                      "bound_bwd")}},
+        # the U-Net's norm and ReLU, the affine instance of the same source:
+        # ms, plain_ms and bound_ms forward and backward at the stem, its
+        # launches counted in a U-Net CycleGAN step
+        {"name": "affine_instance_norm", "route": "cuda",
+         "source": "gan_variant_research_tpu_torch/csrc/instance_norm.cu",
+         "replaces": "none (ops/nn_ops.py::affine_instance_norm then torch.relu, fused by XLA "
+                     "in the JAX package)",
+         "launches_a_step": {d: cg["unet"]["unet_norms"][f"{d}.kernel"] for d in ("fwd", "bwd")},
+         "shape": list(AFFINE_TIMED[0]), "ms": affine_times[AFFINE_TIMED[0]]["fwd_bwd"],
+         "plain_ms": affine_times[AFFINE_TIMED[0]]["plain_fwd_bwd"],
+         "bound_ms": (affine_times[AFFINE_TIMED[0]]["bound_fwd"]
+                      + affine_times[AFFINE_TIMED[0]]["bound_bwd"]), "bound_by": "bytes",
+         **{f"{k}_{'x'.join(map(str, shape))}": affine_times[shape][k]
+            for shape in AFFINE_TIMED
             for k in ("fwd", "bwd", "fwd_bwd", "plain_fwd", "plain_fwd_bwd", "bound_fwd",
                       "bound_bwd")}},
     ], "serve_launches": serve_launches}), flush=True)

@@ -32,7 +32,9 @@ launches by route, counted on the host as each wrapper launches
 counts none), how each CUT step ran (``cut.graph.eager``,
 ``cut.graph.capture``, ``cut.graph.replay``: ``train/cut_trainer.py``), and
 the U-Net's affine norm forwards (``unet.norm``: 15 an apply, 45 a CycleGAN
-step).
+step) with the route each forward and backward took
+(``unet.norm.fwd.<route>``, ``unet.norm.bwd.<route>``:
+``ops/kernels/instance_norm.py``).
 """
 
 from __future__ import annotations

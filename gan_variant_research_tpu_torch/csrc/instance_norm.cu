@@ -53,6 +53,10 @@
 // rounding, which rounding to bf16 keeps. Channel counts that are not
 // multiples of 8 (or unaligned pointers) take the same kernels one channel a
 // thread.
+//
+// The affine instance (the U-Net's norm, float32 gamma and beta, centred
+// variance, one rounding) follows the non-affine one, with its own header
+// and its own entry, affine_instance_norm.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -527,6 +531,401 @@ void launch(const bf16* x, const bf16* g, float* part, float* coef, float* stats
   }
 }
 
+// ---------------------------------------------------------------------------
+// The affine instance: models/generator_unet.py::AffineInstanceNorm (float32
+// gamma and beta per channel), then the ReLU that may follow it. Its own
+// kernels under the same names, in namespace affine, so the non-affine
+// instances above keep their code; the two contracts differ in the variance
+// (centred here) and in where they round (once here), so they share the
+// loads, the block layout and the fixed-order sums, and no arithmetic.
+//
+// Contract (ops/kernels/instance_norm.py's affine_norm_*_reference):
+//   Per (n, c), float32: mean and the centred biased variance var, from one
+//     read of x: Welford's update over each thread's rows, then Chan's
+//     pairwise merge over the block's rows and over the S shares, in a fixed
+//     order. r = rsqrt(var + eps), gr = gamma * r.
+//   y = bf16(gr * (x - mean) + beta) (one FMA, one rounding), then 0 where
+//     that bf16 value is not > 0 with the ReLU.
+//   stats (N, 2, C) float32: mean, var.
+//   Backward, for the cotangent g: g' = g, or 0 where the forward's y is not
+//   > 0 with the ReLU (recomputed from x and stats by the same arithmetic);
+//     S1 = sum g', S2 = r * sum g' * (x - mean) (= sum g' * xhat), per (n, c);
+//     dx = bf16(gr * ((g' - S1 / HW) - (x - mean) * r * S2 / HW)), rounded once;
+//     dbeta = sum_n S1, dgamma = sum_n S2, float32, n in order.
+//
+// Bytes as the non-affine instance: x read twice forward, g and x twice
+// backward, 6 and 10 bytes an element. Launches: statistics, finalize, apply
+// forward; statistics, finalize (per (n, c)), finalize over n (gamma's and
+// beta's gradient, one thread a channel: no atomics, so two runs give the
+// same bits), apply backward. The backward kernels hold two rows in flight a
+// thread, not four: their coefficients (mean, gr, beta, and the two sums'
+// terms) take 40 of the 64 registers.
+
+namespace affine {
+
+constexpr int UNROLL_BWD = 2;
+
+// Welford's update of one thread's (mean, m2) by one row; inv_k is 1 / k for
+// the row's place k = 1, 2, ... in the thread's rows.
+template <int VEC>
+__device__ __forceinline__ void welford_row(const Raw<VEC>& v, float inv_k, float (&mean)[VEC],
+                                            float (&m2)[VEC]) {
+  float f[VEC];
+  unpack<VEC>(v, f);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const float d = f[k] - mean[k];
+    mean[k] = fmaf(d, inv_k, mean[k]);
+    m2[k] = fmaf(d, f[k] - mean[k], m2[k]);
+  }
+}
+
+// (cnt, mean, m2) merged with (nb, mb, m2b): Chan et al.'s pairwise update.
+__device__ __forceinline__ void chan(float& cnt, float& mean, float& m2, float nb, float mb,
+                                     float m2b) {
+  if (nb == 0.f) return;
+  const float t = cnt + nb;
+  const float d = mb - mean;
+  const float w = nb / t;
+  mean = fmaf(d, w, mean);
+  m2 = m2 + m2b + d * d * (cnt * w);
+  cnt = t;
+}
+
+// How many pixels share s of S holds: [s * chunk, min(HW, (s + 1) * chunk)).
+__device__ __forceinline__ float share_count(int HW, int S, int s) {
+  const int chunk = (HW + S - 1) / S;
+  return (float)max(0, min(HW, (s + 1) * chunk) - s * chunk);
+}
+
+// Merges the block's rows' (mean, m2) in the order ty = 0..tyn-1 and writes
+// them as the partial (n, s) of the block's channels.
+template <int VEC>
+__device__ void block_moments(const Geom& gm, const float (&mean)[VEC], const float (&m2)[VEC],
+                              float* part, int HW, int n, int s, int S, int C, int cb) {
+  __shared__ float red[2][THREADS * VEC];
+  const int width = gm.txn * VEC;
+  if (gm.ty < gm.tyn) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      red[0][gm.ty * width + gm.tx * VEC + k] = mean[k];
+      red[1][gm.ty * width + gm.tx * VEC + k] = m2[k];
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int c = cb * width + t;
+  if (t < width && c < C) {
+    const int chunk = (HW + S - 1) / S;
+    const int p1 = min(HW, (s + 1) * chunk);
+    float cnt = 0.f, mu = 0.f, q = 0.f;
+    for (int r = 0; r < gm.tyn; ++r) {
+      const int first = s * chunk + r;
+      const int rows = first < p1 ? (p1 - first + gm.tyn - 1) / gm.tyn : 0;
+      chan(cnt, mu, q, (float)rows, red[0][r * width + t], red[1][r * width + t]);
+    }
+    float* dst = part + ((size_t)n * S + s) * 2 * C;
+    dst[c] = mu;
+    dst[C + c] = q;
+  }
+}
+
+__device__ __forceinline__ float inv_std(float var, float eps) { return rsqrtf(var + eps); }
+
+// The pre-activation gr * (x - mean) + beta, and whether the ReLU keeps it:
+// its bf16 rounding, the value stored, is > 0.
+__device__ __forceinline__ float pre(float x, float mean, float gr, float beta) {
+  return fmaf(x - mean, gr, beta);
+}
+__device__ __forceinline__ bool kept(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v)) > 0.f;
+}
+
+// The block's channels' mean, gr and beta into sh[0..2] and, with K = 5, the
+// backward's S1 / HW and r * S2 / HW into sh[3], sh[4], from the saved
+// statistics: bit for bit the same in every pass.
+template <int K>
+__device__ void load_affine(const float* stats, const float* gamma, const float* beta,
+                            const float* sums, float (&sh)[K][CPB], int n, int HW, int C,
+                            int width, int cb, float eps) {
+  const int t = threadIdx.x;
+  const int c = cb * width + t;
+  if (t < width && c < C) {
+    const float mean = stats[(size_t)n * 2 * C + c];
+    const float r = inv_std(stats[((size_t)n * 2 + 1) * C + c], eps);
+    sh[0][t] = mean;
+    sh[1][t] = gamma[c] * r;
+    sh[2][t] = beta[c];
+    if constexpr (K == 5) {
+      sh[3][t] = sums[(size_t)n * 2 * C + c] / (float)HW;
+      sh[4][t] = r * (sums[((size_t)n * 2 + 1) * C + c] / (float)HW);
+    }
+  }
+  __syncthreads();
+}
+
+template <int VEC, int K>
+__device__ __forceinline__ void thread_vals(const Geom& gm, const float (&sh)[K][CPB], int k,
+                                            float (&v)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) v[i] = gm.active ? sh[k][gm.tx * VEC + i] : 0.f;
+}
+
+// forward
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+inorm_fwd_stats(const bf16* __restrict__ x, float* __restrict__ part, int HW, int C, int S) {
+  const int s = blockIdx.x, cb = blockIdx.y, n = blockIdx.z;
+  const Geom gm(HW, C, S, s, VEC, cb);
+  const bf16* base = x + (size_t)n * HW * C + (size_t)gm.vi * VEC;
+  float mean[VEC], m2[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) mean[k] = m2[k] = 0.f;
+  int r = 0;
+  for (; r + UNROLL <= gm.rows; r += UNROLL) {
+    Raw<VEC> v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) v[u] = load_raw<VEC>(base + (size_t)gm.pixel(r + u) * C);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      welford_row<VEC>(v[u], __frcp_rn((float)(r + u + 1)), mean, m2);
+  }
+  for (; r < gm.rows; ++r)
+    welford_row<VEC>(load_raw<VEC>(base + (size_t)gm.pixel(r) * C), __frcp_rn((float)(r + 1)),
+                     mean, m2);
+  block_moments<VEC>(gm, mean, m2, part, HW, n, s, S, C, cb);
+}
+
+// The statistics (N, 2, C): the S partials of each (n, c) merged in GROUPS
+// strided groups (group j takes s = j, j + GROUPS, ... in order), the groups
+// then merged in the order j = 0..GROUPS-1.
+__global__ void __launch_bounds__(THREADS)
+inorm_fwd_finalize(const float* __restrict__ part, float* __restrict__ stats, int HW, int C,
+                   int S) {
+  const int lane = threadIdx.x % 32, j = threadIdx.x / 32;
+  const int n = blockIdx.y, c = blockIdx.x * 32 + lane;
+  float cnt = 0.f, mu = 0.f, q = 0.f;
+  if (c < C) {
+    for (int s = j; s < S; s += GROUPS) {
+      const float* src = part + ((size_t)n * S + s) * 2 * C;
+      chan(cnt, mu, q, share_count(HW, S, s), src[c], src[C + c]);
+    }
+  }
+  __shared__ float red[3][GROUPS][32];
+  red[0][j][lane] = cnt;
+  red[1][j][lane] = mu;
+  red[2][j][lane] = q;
+  __syncthreads();
+  if (j != 0 || c >= C) return;
+  cnt = mu = q = 0.f;
+#pragma unroll
+  for (int i = 0; i < GROUPS; ++i)
+    chan(cnt, mu, q, red[0][i][lane], red[1][i][lane], red[2][i][lane]);
+  stats[(size_t)n * 2 * C + c] = mu;
+  stats[((size_t)n * 2 + 1) * C + c] = q / (float)HW;
+}
+
+template <int VEC, bool RELU>
+__device__ __forceinline__ void fwd_row(const Raw<VEC>& v, const float (&mean)[VEC],
+                                        const float (&gr)[VEC], const float (&bt)[VEC], bf16* out) {
+  float f[VEC];
+  unpack<VEC>(v, f);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const float p = pre(f[k], mean[k], gr[k], bt[k]);
+    f[k] = RELU && !kept(p) ? 0.f : p;
+  }
+  store_rn<VEC>(out, f);
+}
+
+template <int VEC, bool RELU>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+inorm_fwd_apply(const bf16* __restrict__ x, const float* __restrict__ stats,
+                const float* __restrict__ gamma, const float* __restrict__ beta,
+                bf16* __restrict__ y, int HW, int C, int S, float eps) {
+  const int s = blockIdx.x, cb = blockIdx.y, n = blockIdx.z;
+  const Geom gm(HW, C, S, s, VEC, cb);
+  __shared__ float sh[3][CPB];
+  load_affine<3>(stats, gamma, beta, nullptr, sh, n, HW, C, gm.txn * VEC, cb, eps);
+  float mean[VEC], gr[VEC], bt[VEC];
+  thread_vals<VEC, 3>(gm, sh, 0, mean);
+  thread_vals<VEC, 3>(gm, sh, 1, gr);
+  thread_vals<VEC, 3>(gm, sh, 2, bt);
+  const size_t base = (size_t)n * HW * C + (size_t)gm.vi * VEC;
+  // rows from the last: the statistics pass read those last
+  int r = gm.rows - 1;
+  for (; r + 1 >= UNROLL; r -= UNROLL) {
+    Raw<VEC> v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) v[u] = load_raw<VEC>(x + base + (size_t)gm.pixel(r - u) * C);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      fwd_row<VEC, RELU>(v[u], mean, gr, bt, y + base + (size_t)gm.pixel(r - u) * C);
+  }
+  for (; r >= 0; --r)
+    fwd_row<VEC, RELU>(load_raw<VEC>(x + base + (size_t)gm.pixel(r) * C), mean, gr, bt,
+                       y + base + (size_t)gm.pixel(r) * C);
+}
+
+// backward
+
+// g' of one row, and x - mean, as floats.
+template <int VEC, bool RELU>
+__device__ __forceinline__ void masked(const Raw<VEC>& g, const Raw<VEC>& x,
+                                       const float (&mean)[VEC], const float (&gr)[VEC],
+                                       const float (&bt)[VEC], float (&gk)[VEC],
+                                       float (&d)[VEC]) {
+  float xf[VEC];
+  unpack<VEC>(g, gk);
+  unpack<VEC>(x, xf);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    d[k] = xf[k] - mean[k];
+    if constexpr (RELU) gk[k] = kept(pre(xf[k], mean[k], gr[k], bt[k])) ? gk[k] : 0.f;
+  }
+}
+
+template <int VEC, bool RELU>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+inorm_bwd_stats(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                const float* __restrict__ stats, const float* __restrict__ gamma,
+                const float* __restrict__ beta, float* __restrict__ part, int HW, int C, int S,
+                float eps) {
+  const int s = blockIdx.x, cb = blockIdx.y, n = blockIdx.z;
+  const Geom gm(HW, C, S, s, VEC, cb);
+  __shared__ float sh[3][CPB];
+  load_affine<3>(stats, gamma, beta, nullptr, sh, n, HW, C, gm.txn * VEC, cb, eps);
+  float mean[VEC], gr[VEC], bt[VEC];
+  thread_vals<VEC, 3>(gm, sh, 0, mean);
+  thread_vals<VEC, 3>(gm, sh, 1, gr);
+  thread_vals<VEC, 3>(gm, sh, 2, bt);
+  const size_t base = (size_t)n * HW * C + (size_t)gm.vi * VEC;
+  float s1[VEC], s2[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+  int r = 0;
+  for (; r < gm.rows; r += UNROLL_BWD) {
+    const int m = min(UNROLL_BWD, gm.rows - r);
+    Raw<VEC> gv[UNROLL_BWD], xv[UNROLL_BWD];
+#pragma unroll
+    for (int u = 0; u < UNROLL_BWD; ++u) {
+      if (u < m) {
+        gv[u] = load_raw<VEC>(g + base + (size_t)gm.pixel(r + u) * C);
+        xv[u] = load_raw<VEC>(x + base + (size_t)gm.pixel(r + u) * C);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL_BWD; ++u) {
+      if (u < m) {
+        float gk[VEC], d[VEC];
+        masked<VEC, RELU>(gv[u], xv[u], mean, gr, bt, gk, d);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          s1[k] += gk[k];
+          s2[k] = fmaf(gk[k], d[k], s2[k]);
+        }
+      }
+    }
+  }
+  block_partial<VEC>(gm, s1, s2, part, n, s, S, C, cb);
+}
+
+// Per (n, c): S1 and S2 (N, 2, C) into sums, the partials added as the
+// non-affine finalize adds them.
+__global__ void __launch_bounds__(THREADS)
+inorm_bwd_finalize(const float* __restrict__ part, const float* __restrict__ stats,
+                   float* __restrict__ sums, int C, int S, float eps) {
+  float g1, g2;
+  int n, c;
+  if (!sum_partials(part, S, C, g1, g2, n, c)) return;
+  const float r = inv_std(stats[((size_t)n * 2 + 1) * C + c], eps);
+  sums[(size_t)n * 2 * C + c] = g1;
+  sums[((size_t)n * 2 + 1) * C + c] = r * g2;
+}
+
+// The finalize over n: dgamma (C) then dbeta (C) into dparams, each the sum
+// of sums' (n, c) over n = 0..N-1 in order; one thread a channel.
+__global__ void __launch_bounds__(THREADS)
+inorm_bwd_finalize(const float* __restrict__ sums, float* __restrict__ dparams, int N, int C) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll 8
+  for (int n = 0; n < N; ++n) {
+    s1 += sums[(size_t)n * 2 * C + c];
+    s2 += sums[((size_t)n * 2 + 1) * C + c];
+  }
+  dparams[c] = s2;
+  dparams[C + c] = s1;
+}
+
+template <int VEC, bool RELU>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+inorm_bwd_apply(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                const float* __restrict__ stats, const float* __restrict__ gamma,
+                const float* __restrict__ beta, const float* __restrict__ sums,
+                bf16* __restrict__ dx, int HW, int C, int S, float eps) {
+  const int s = blockIdx.x, cb = blockIdx.y, n = blockIdx.z;
+  const Geom gm(HW, C, S, s, VEC, cb);
+  __shared__ float sh[5][CPB];
+  load_affine<5>(stats, gamma, beta, sums, sh, n, HW, C, gm.txn * VEC, cb, eps);
+  float mean[VEC], gr[VEC], bt[VEC], a[VEC], rb[VEC];
+  thread_vals<VEC, 5>(gm, sh, 0, mean);
+  thread_vals<VEC, 5>(gm, sh, 1, gr);
+  thread_vals<VEC, 5>(gm, sh, 2, bt);
+  thread_vals<VEC, 5>(gm, sh, 3, a);
+  thread_vals<VEC, 5>(gm, sh, 4, rb);
+  const size_t base = (size_t)n * HW * C + (size_t)gm.vi * VEC;
+  // rows from the last: the statistics pass read those last
+  for (int r = gm.rows - 1; r >= 0; r -= UNROLL_BWD) {
+    const int m = min(UNROLL_BWD, r + 1);
+    Raw<VEC> gv[UNROLL_BWD], xv[UNROLL_BWD];
+#pragma unroll
+    for (int u = 0; u < UNROLL_BWD; ++u) {
+      if (u < m) {
+        gv[u] = load_raw<VEC>(g + base + (size_t)gm.pixel(r - u) * C);
+        xv[u] = load_raw<VEC>(x + base + (size_t)gm.pixel(r - u) * C);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL_BWD; ++u) {
+      if (u < m) {
+        float gk[VEC], d[VEC];
+        masked<VEC, RELU>(gv[u], xv[u], mean, gr, bt, gk, d);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) gk[k] = gr[k] * fmaf(-d[k], rb[k], gk[k] - a[k]);
+        store_rn<VEC>(dx + base + (size_t)gm.pixel(r - u) * C, gk);
+      }
+    }
+  }
+}
+
+template <int VEC, bool RELU>
+void launch(const bf16* x, const bf16* g, const float* gamma, const float* beta, float* part,
+            float* sums, float* stats, bf16* out, float* dparams, int N, int HW, int C, int S,
+            int backward, float eps, cudaStream_t st) {
+  const int cv = C / VEC;
+  const int txn = cv < TX_MAX ? cv : TX_MAX;
+  const dim3 grid(S, (cv + txn - 1) / txn, N);
+  const dim3 fin((C + 31) / 32, N);
+  if (!backward) {
+    inorm_fwd_stats<VEC><<<grid, THREADS, 0, st>>>(x, part, HW, C, S);
+    inorm_fwd_finalize<<<fin, THREADS, 0, st>>>(part, stats, HW, C, S);
+    inorm_fwd_apply<VEC, RELU><<<grid, THREADS, 0, st>>>(x, stats, gamma, beta, out, HW, C, S,
+                                                         eps);
+  } else {
+    inorm_bwd_stats<VEC, RELU><<<grid, THREADS, 0, st>>>(g, x, stats, gamma, beta, part, HW, C,
+                                                         S, eps);
+    inorm_bwd_finalize<<<fin, THREADS, 0, st>>>(part, stats, sums, C, S, eps);
+    inorm_bwd_finalize<<<(C + THREADS - 1) / THREADS, THREADS, 0, st>>>(sums, dparams, N, C);
+    inorm_bwd_apply<VEC, RELU><<<grid, THREADS, 0, st>>>(g, x, stats, gamma, beta, sums, out,
+                                                         HW, C, S, eps);
+  }
+}
+
+}  // namespace affine
+
 }  // namespace
 
 // x, g (backward only; null forward), out (y or dx): (N, HW, C) bf16
@@ -555,5 +954,45 @@ extern "C" int instance_norm(const void* x, const void* g, void* work, void* sta
     if (relu) launch<1, true>(xb, gb, part, coef, sf, ob, N, HW, C, S, backward, eps, st);
     else launch<1, false>(xb, gb, part, coef, sf, ob, N, HW, C, S, backward, eps, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The affine instance. x, g (backward only; null forward), out (y or dx):
+// (N, HW, C) bf16 contiguous. gamma, beta: (C) float32. work: as
+// instance_norm's (the partials, then the backward's per-(n, c) sums S1, S2
+// in the coefficients' room). stats: (N, 2, C) float32 mean and centred
+// variance, written forward, read backward. dparams (backward only; null
+// forward): (2, C) float32, dgamma then dbeta. eps_bits: the float eps's
+// bits. Returns the launch's CUDA error, 0 if none.
+extern "C" int affine_instance_norm(const void* x, const void* g, const void* gamma,
+                                    const void* beta, void* work, void* stats, void* out,
+                                    void* dparams, int N, int HW, int C, int S, int relu,
+                                    int backward, int eps_bits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > 65535 || HW < 1 || C < 1 || S < 1 || S > HW || gamma == nullptr ||
+      beta == nullptr || (backward && (g == nullptr || dparams == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float eps;
+  memcpy(&eps, &eps_bits, sizeof(eps));
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* gf = static_cast<const float*>(gamma);
+  const float* bf = static_cast<const float*>(beta);
+  float* part = static_cast<float*>(work);
+  float* sums = part + (size_t)N * S * 2 * C;
+  float* sf = static_cast<float*>(stats);
+  bf16* ob = static_cast<bf16*>(out);
+  float* dp = static_cast<float*>(dparams);
+  const bool aligned = ((uintptr_t)x | (uintptr_t)g | (uintptr_t)out) % 16 == 0;
+  void (*run)(const bf16*, const bf16*, const float*, const float*, float*, float*, float*,
+              bf16*, float*, int, int, int, int, int, float, cudaStream_t);
+  if (C % 8 == 0 && aligned) {
+    if (relu) run = affine::launch<8, true>;
+    else run = affine::launch<8, false>;
+  } else {
+    if (relu) run = affine::launch<1, true>;
+    else run = affine::launch<1, false>;
+  }
+  run(xb, gb, gf, bf, part, sums, sf, ob, dp, N, HW, C, S, backward, eps, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,13 +22,15 @@ flax's ``'SAME'``:
   (in, out, kh, kw) order (``convert._hwio_to_convtranspose``) gives the
   same values on its first 2H rows and columns (it pads (2, 2)).
 
-Runs no hand-written kernel: every conv is cuDNN on the card, and the
-norm is a stock float32 chain. Its spans (``core/trace.py``): one apply is
-``unet.encoder`` (stem and four downs), ``unet.bottleneck`` and
-``unet.decoder`` (the ups, skip concatenations, reduces and output conv);
-each ``AffineInstanceNorm`` forward is a ``unet.norm`` span inside them and
-adds 1 to the counter ``unet.norm`` (15 an apply). The norms' backward runs
-on autograd's thread, outside any span.
+Every conv is cuDNN on the card. Each norm and the ReLU after it is
+``ops/kernels/instance_norm.py::affine_instance_norm``: the hand-written
+affine kernels for a bf16 CUDA tensor, the stock float32 chain otherwise
+(counters ``unet.norm.{fwd,bwd}.{kernel,plain}``). Its spans
+(``core/trace.py``): one apply is ``unet.encoder`` (stem and four downs),
+``unet.bottleneck`` and ``unet.decoder`` (the ups, skip concatenations,
+reduces and output conv); each ``AffineInstanceNorm`` forward is a
+``unet.norm`` span inside them and adds 1 to the counter ``unet.norm`` (15
+an apply). The norms' backward runs on autograd's thread, outside any span.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch.nn.functional as F
 
 from gan_variant_research_tpu_torch.core import trace
 from gan_variant_research_tpu_torch.models.layers import Conv2d
+from gan_variant_research_tpu_torch.ops.kernels import instance_norm
 
 # the JAX module's count of each submodule
 N_CONVS, N_UPS, N_NORMS = 12, 4, 15
@@ -62,24 +65,21 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class AffineInstanceNorm(nn.Module):
     """Instance norm over H, W with learnable ``gamma`` / ``beta``, in float32
-    (biased variance, eps 1e-5), cast back to the input dtype. The forward
-    is a ``unet.norm`` span and counts ``unet.norm``; the backward, on
-    autograd's thread, is in no span."""
+    (biased variance, eps 1e-5), cast back to the input dtype, then the ReLU
+    if ``relu``. The forward is a ``unet.norm`` span and counts
+    ``unet.norm``; the backward, on autograd's thread, is in no span."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, relu: bool = False):
         super().__init__()
-        self.eps = eps
+        self.eps, self.relu = eps, relu
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         trace.count("unet.norm")
         with trace.span("unet.norm"):
-            x32 = x.float()
-            mean = x32.mean(dim=(1, 2), keepdim=True)
-            var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
-            out = (x32 - mean) * torch.rsqrt(var + self.eps)
-            return (self.gamma.float() * out + self.beta.float()).to(x.dtype)
+            return instance_norm.affine_instance_norm(x, self.gamma, self.beta, self.eps,
+                                                      self.relu)
 
 
 class _SameConv(nn.Module):
@@ -148,14 +148,14 @@ class UNetGenerator(nn.Module):
         for i, (c_in, c_out) in enumerate(ups):
             self.add_module(f"ConvTranspose_{i}", _SameConvTranspose(c_in, c_out, **kw))
         # the norms in creation order: stem, 4 downs, 2 bottleneck convs, then
-        # each up and its reduce conv
+        # each up and its reduce conv; each with the ReLU that follows it
         norms = [ngf, 2 * ngf, 4 * ngf, 8 * ngf, 8 * ngf, 8 * ngf, 8 * ngf]
         norms += [c for _, c_out in ups for c in (c_out, c_out)]
         for i, c in enumerate(norms):
-            self.add_module(f"AffineInstanceNorm_{i}", AffineInstanceNorm(c))
+            self.add_module(f"AffineInstanceNorm_{i}", AffineInstanceNorm(c, relu=True))
 
     def _conv_block(self, h: torch.Tensor, conv: nn.Module, norm: int) -> torch.Tensor:
-        return torch.relu(getattr(self, f"AffineInstanceNorm_{norm}")(conv(h)))
+        return getattr(self, f"AffineInstanceNorm_{norm}")(conv(h))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = lambda i: getattr(self, f"_SameConv_{i}")  # noqa: E731

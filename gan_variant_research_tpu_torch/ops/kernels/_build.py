@@ -3,10 +3,12 @@ them: the one seam between the kernel wrappers and ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface, declared once in
 ``KERNELS``: pointers, then ints, then the stream, returning a CUDA error
-code. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``build/torch_kernels/`` beside the package, and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds. Nothing is built when a module is
+code; a second entry of one source (the affine norm's, in
+``instance_norm.cu``) names its source in ``SOURCES``. A source is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/torch_kernels/`` beside the package, and loaded with ``ctypes``.
+The library's file name carries a hash of the source and the flags, so an
+edited source rebuilds. Nothing is built when a module is
 imported: the CPU path never calls this.
 
 ``launch`` finds its kernel through the module attribute ``kernel`` at each
@@ -41,7 +43,10 @@ KERNELS = {
     "spatial_attention_dkv": ("spatial_attention_dkv", 8, 5),
     "spatial_attention_dq": ("spatial_attention_dq", 7, 5),
     "instance_norm": ("instance_norm", 5, 7),
+    "affine_instance_norm": ("affine_instance_norm", 8, 7),
 }
+# an entry of another kernel's source -> that source's name
+SOURCES = {"affine_instance_norm": "instance_norm"}
 # the kernels' dtype argument, and the grid's z limit (the batch, or splits)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GRID_Z_MAX = 65535
@@ -96,8 +101,9 @@ def bind(lib: ctypes.CDLL, name: str):
 
 @functools.cache
 def kernel(name: str):
-    """Kernel ``name``'s entry, built and loaded at the first call."""
-    return bind(load_library(name), name)
+    """Kernel ``name``'s entry, its source built and loaded at the first
+    call."""
+    return bind(load_library(SOURCES.get(name, name)), name)
 
 
 @functools.cache

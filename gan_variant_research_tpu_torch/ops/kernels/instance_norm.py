@@ -23,6 +23,21 @@ and launch (the backward's on autograd's device thread). Counters
 ``ROUTES``) count each call where it runs on the host, the plain route's
 on the CPU too (its backward by a hook on the output), so a CUDA-graph
 replay counts none.
+
+The U-Net's affine norm, ``affine_instance_norm(x, gamma, beta, eps,
+relu)``, routes the same way (``norm_route``): a bf16 CUDA tensor goes
+through ``_AffineInstanceNorm`` and ``csrc/instance_norm.cu``'s affine
+instance (entry ``affine_instance_norm``), anything else through the plain
+chain ``ops/nn_ops.py::affine_instance_norm`` then ``torch.relu`` (the
+U-Net's float32 arithmetic and autograd graph). The kernels' contract is
+written out as
+``affine_norm_stats_reference``, ``affine_norm_apply_reference`` and
+``affine_norm_backward_reference`` (the chain's statistics and apply, and
+its gradient taken by hand: dx, dgamma and dbeta). It saves x and the
+(N, 2, C) float32 mean and centred variance; the backward returns dx,
+dgamma and dbeta. Counters ``unet.norm.fwd.<route>`` and
+``unet.norm.bwd.<route>``, counted as the non-affine ones are; no span of
+its own (the U-Net's ``unet.norm`` span holds the forward).
 """
 
 from __future__ import annotations
@@ -124,13 +139,19 @@ def backward_terms(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor, relu: 
 # --------------------------------------------------------------------------- #
 # the kernel's launches
 
+def _scratch(x: torch.Tensor, eps: float):
+    """(S, the float32 scratch, eps's bits) of a launch on ``x``: the
+    partial sums (N, S, 2, C), then the coefficients (N, 4, C); torch.empty,
+    so no fill lands on the card."""
+    n, _, _, c = x.shape
+    splits = norm_splits(x.shape, _build.sm_count(x.device.index))
+    work = torch.empty(n * c * (2 * splits + 4), dtype=torch.float32, device=x.device)
+    return splits, work, struct.unpack("<i", struct.pack("<f", eps))[0]
+
+
 def _launch(x, g, stats, out, eps: float, relu: bool, backward: bool) -> None:
     n, h, w, c = x.shape
-    splits = norm_splits(x.shape, _build.sm_count(x.device.index))
-    # float32 scratch: the partial sums (N, S, 2, C), then the coefficients
-    # (N, 4, C); torch.empty, so no fill lands on the card
-    work = torch.empty(n * c * (2 * splits + 4), dtype=torch.float32, device=x.device)
-    eps_bits = struct.unpack("<i", struct.pack("<f", eps))[0]
+    splits, work, eps_bits = _scratch(x, eps)
     _build.launch("instance_norm", x.device, x.data_ptr(), 0 if g is None else g.data_ptr(),
                   work.data_ptr(), stats.data_ptr(), out.data_ptr(), n, h * w, c, splits,
                   int(relu), int(backward), eps_bits)
@@ -194,4 +215,142 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False) -> tor
     trace.count("norm.fwd.plain")
     if y.requires_grad:
         y.register_hook(_count_plain_backward)
+    return y
+
+
+# --------------------------------------------------------------------------- #
+# the U-Net's affine norm: plain versions (the kernels' contract)
+
+def affine_norm_stats_reference(x: torch.Tensor) -> torch.Tensor:
+    """(N, 2, C) float32: the mean over H, W and the centred biased variance
+    mean((x - mean)^2), as ``nn_ops.affine_instance_norm`` computes them."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2), keepdim=True)
+    var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+    return torch.stack([mean[:, 0, 0], var[:, 0, 0]], dim=1)
+
+
+def _affine_terms(x, stats, eps):
+    """x - mean and r = rsqrt(var + eps), float32, (N, 1, 1, C) for r."""
+    mean = stats[:, 0, None, None, :]
+    return x.float() - mean, torch.rsqrt(stats[:, 1, None, None, :] + eps)
+
+
+def affine_norm_apply_reference(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, relu: bool,
+                                eps: float = 1e-5) -> torch.Tensor:
+    """``gamma * (x - mean) * r + beta`` in float32, rounded to x's dtype
+    once, then the ReLU if ``relu``: the chain's apply on ``stats``."""
+    centred, r = _affine_terms(x, stats, eps)
+    y = (gamma.float() * (centred * r) + beta.float()).to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def affine_norm_backward_reference(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                                   gamma: torch.Tensor, beta: torch.Tensor, relu: bool,
+                                   eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of ``affine_norm_apply_reference`` (with the
+    statistics' own dependence on x) for the cotangent ``g``: autograd's
+    graph of the plain chain, taken by hand.
+
+    g' is g where the forward's output is positive (with the ReLU). Per
+    (n, c), float32: S1 = sum g', S2 = sum g' * xhat (xhat = (x - mean) * r);
+    dx = gamma * r * (g' - S1 / HW - xhat * S2 / HW), rounded to x's dtype
+    once; dbeta = sum over n of S1, dgamma of S2, float32."""
+    if relu:
+        y = affine_norm_apply_reference(x, stats, gamma, beta, False, eps)
+        g = torch.where(y > 0, g, torch.zeros_like(g))
+    gf = g.float()
+    centred, r = _affine_terms(x, stats, eps)
+    xhat = centred * r
+    s1 = gf.sum(dim=(1, 2), keepdim=True)
+    s2 = (gf * xhat).sum(dim=(1, 2), keepdim=True)
+    hw = x.shape[1] * x.shape[2]
+    dx = gamma.float() * r * (gf - s1 / hw - xhat * (s2 / hw))
+    return dx.to(x.dtype), s2.sum(dim=(0, 1, 2)), s1.sum(dim=(0, 1, 2))
+
+
+# --------------------------------------------------------------------------- #
+# the affine kernels' launches
+
+def _launch_affine(x, g, gamma, beta, stats, out, dparams, eps: float, relu: bool,
+                   backward: bool) -> None:
+    n, h, w, c = x.shape
+    splits, work, eps_bits = _scratch(x, eps)
+    _build.launch("affine_instance_norm", x.device, x.data_ptr(),
+                  0 if g is None else g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                  work.data_ptr(), stats.data_ptr(), out.data_ptr(),
+                  0 if dparams is None else dparams.data_ptr(), n, h * w, c, splits, int(relu),
+                  int(backward), eps_bits)
+
+
+def _params(gamma: torch.Tensor, beta: torch.Tensor):
+    return gamma.detach().float().contiguous(), beta.detach().float().contiguous()
+
+
+def _launch_affine_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                           relu: bool):
+    if x.shape[0] > _build.GRID_Z_MAX:
+        raise ValueError(f"batch {x.shape[0]} exceeds the kernel's grid limit of "
+                         f"{_build.GRID_Z_MAX}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    stats = torch.empty((x.shape[0], 2, x.shape[3]), dtype=torch.float32, device=x.device)
+    _launch_affine(x, None, *_params(gamma, beta), stats, y, None, eps, relu, backward=False)
+    trace.count("unet.norm.fwd.kernel")
+    return x, y, stats
+
+
+def _launch_affine_backward(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                            gamma: torch.Tensor, beta: torch.Tensor, eps: float, relu: bool):
+    """(dx in x's dtype, dgamma, dbeta float32)."""
+    g = g.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    dparams = torch.empty((2, x.shape[3]), dtype=torch.float32, device=x.device)
+    _launch_affine(x, g, *_params(gamma, beta), stats, dx, dparams, eps, relu, backward=True)
+    trace.count("unet.norm.bwd.kernel")
+    return dx, dparams[0], dparams[1]
+
+
+class _AffineInstanceNorm(torch.autograd.Function):
+    """The bf16 affine norm (and ReLU) on a CUDA tensor, forward and backward
+    on the kernels; gamma and beta get their gradients in their own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu):
+        x, y, stats = _launch_affine_forward(x, gamma, beta, eps, relu)
+        ctx.save_for_backward(x, gamma, beta, stats)
+        ctx.eps, ctx.relu = eps, relu
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, gamma, beta, stats = ctx.saved_tensors
+        dx, dgamma, dbeta = _launch_affine_backward(g, x, stats, gamma, beta, ctx.eps, ctx.relu)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None
+
+
+def _count_affine_plain_backward(grad: torch.Tensor) -> None:
+    trace.count("unet.norm.bwd.plain")
+
+
+def affine_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """The U-Net's affine instance norm of the NHWC tensor ``x`` over H and W
+    (per-channel ``gamma``, ``beta``), then ``torch.relu`` if ``relu``: the
+    kernels for a bf16 CUDA tensor, the plain chain for any other
+    (``norm_route``)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC (4-D), got shape {tuple(x.shape)}")
+    if gamma.shape != (x.shape[3],) or beta.shape != (x.shape[3],):
+        raise ValueError(f"gamma and beta must be ({x.shape[3]},), got {tuple(gamma.shape)} "
+                         f"and {tuple(beta.shape)}")
+    if norm_route(x) == "kernel":
+        return _AffineInstanceNorm.apply(x, gamma, beta, eps, relu)
+    y = nn_ops.affine_instance_norm(x, gamma, beta, eps)
+    y = torch.relu(y) if relu else y
+    trace.count("unet.norm.fwd.plain")
+    if y.requires_grad:
+        y.register_hook(_count_affine_plain_backward)
     return y

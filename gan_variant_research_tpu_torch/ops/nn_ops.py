@@ -1,7 +1,8 @@
 """Core NN primitives with the JAX package's semantics, NHWC layout.
 
 Counterpart of ``gan_variant_research_tpu/ops/nn_ops.py``: instance norm
-(no affine, biased variance, eps 1e-5), reflection padding, and the
+(no affine, biased variance, eps 1e-5), the U-Net's affine instance norm
+(its chain from ``models/generator_unet.py``), reflection padding, and the
 PyTorch-default conv initialisers, U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 """
 
@@ -28,6 +29,19 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     scale = inv.to(x.dtype)
     offset = (mean * inv).to(x.dtype)
     return x * scale - offset
+
+
+def affine_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """The U-Net's affine instance norm of an NHWC tensor over H and W, as
+    the JAX package's ``models/generator_unet.py::AffineInstanceNorm``:
+    float32 mean and centred biased variance, ``gamma * (x - mean) *
+    rsqrt(var + eps) + beta`` in float32, cast back to x's dtype once."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2), keepdim=True)
+    var = (x32 - mean).square().mean(dim=(1, 2), keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (gamma.float() * out + beta.float()).to(x.dtype)
 
 
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -188,6 +188,9 @@ def test_cyclegan_console_script_resolves(pyproject):
 
 KERNELS = ["reflect_conv3x3", "reflect_conv3x3_dx", "reflect_conv3x3_dw", "spatial_attention",
            "spatial_attention_dkv", "spatial_attention_dq", "instance_norm"]
+# every entry of _build.KERNELS: each source's, and the affine norm's second
+# entry in instance_norm.cu
+ENTRIES = KERNELS + ["affine_instance_norm"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -201,58 +204,65 @@ def test_kernel_library_name_tracks_its_source(kernel):
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
-def _c_parameters(source: str) -> tuple[str, list[str]]:
-    """The exported function of a kernel source: its name and, for each
-    parameter in order, "ptr" or "int"."""
+def _c_parameters(source: str) -> dict[str, list[str]]:
+    """The exported functions of a kernel source: each one's name -> for
+    each parameter in order, "ptr" or "int"."""
     found = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source)
-    assert len(found) == 1, f"expected one extern \"C\" int function, found {len(found)}"
-    name, params = found[0]
-    kinds = []
-    for p in (" ".join(p.split()) for p in params.split(",")):
-        if "*" in p:
-            kinds.append("ptr")
-        elif re.fullmatch(r"(const )?int \w+", p):
-            kinds.append("int")
-        else:
-            raise AssertionError(f"{name}: parameter {p!r} is neither a pointer nor an int")
-    return name, kinds
+    assert found, 'expected an extern "C" int function, found none'
+    entries = {}
+    for name, params in found:
+        kinds = []
+        for p in (" ".join(p.split()) for p in params.split(",")):
+            if "*" in p:
+                kinds.append("ptr")
+            elif re.fullmatch(r"(const )?int \w+", p):
+                kinds.append("int")
+            else:
+                raise AssertionError(f"{name}: parameter {p!r} is neither a pointer nor an int")
+        entries[name] = kinds
+    return entries
 
 
 def _wrapper_argtypes(monkeypatch) -> dict:
-    """What ``_build.kernel`` asks of each library for every kernel of its
-    table: library name -> (symbol, ctypes argtypes, restype), without
-    building."""
+    """What ``_build.kernel`` asks of the libraries for every kernel of its
+    table: kernel name -> (the library's source, symbol, ctypes argtypes,
+    restype), without building."""
     from gan_variant_research_tpu_torch.ops.kernels import _build
 
     asked = {}
 
     class Library:
-        def __init__(self, name):
-            self.name = name
+        def __init__(self, source):
+            self.source = source
 
         def __getattr__(self, symbol):
             fn = types.SimpleNamespace()
-            asked[self.name] = (symbol, fn)
+            asked[symbol] = (self.source, fn)
             return fn
 
     monkeypatch.setattr(_build, "load_library", Library)
+    loaded = {}
     for name in _build.KERNELS:
         _build.kernel.__wrapped__(name)   # the uncached loader: the real ctypes setup
-    return {name: (symbol, fn.argtypes, fn.restype) for name, (symbol, fn) in asked.items()}
+        symbol = _build.KERNELS[name][0]
+        source, fn = asked[symbol]
+        loaded[name] = (source, symbol, fn.argtypes, fn.restype)
+    return loaded
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", ENTRIES)
 def test_kernel_c_signature_matches_its_wrapper(kernel, monkeypatch):
     """The ctypes argtypes ``_build``'s table gives a kernel must match its
     C parameters in count and order (pointers as c_void_p, ints as c_int, the
     stream last): a mismatch corrupts memory on the card, where no CPU test
-    runs the kernel."""
+    runs the kernel. Every exported function of a source is in the table."""
     assert sorted(p.stem for p in (REPO_ROOT / PKG / "csrc").glob("*.cu")) == sorted(KERNELS)
-    name, kinds = _c_parameters((REPO_ROOT / PKG / "csrc" / f"{kernel}.cu").read_text())
     loaded = _wrapper_argtypes(monkeypatch)
-    assert sorted(loaded) == sorted(KERNELS)
-    symbol, argtypes, restype = loaded[kernel]
-    assert symbol == name
+    assert sorted(loaded) == sorted(ENTRIES)
+    source, symbol, argtypes, restype = loaded[kernel]
+    entries = _c_parameters((REPO_ROOT / PKG / "csrc" / f"{source}.cu").read_text())
+    assert sorted(entries) == sorted(s for src, s, _, _ in loaded.values() if src == source)
+    kinds = entries[symbol]
     assert restype is ctypes.c_int
     as_kinds = [{ctypes.c_void_p: "ptr", ctypes.c_int: "int"}[t] for t in argtypes]
     assert as_kinds == kinds
